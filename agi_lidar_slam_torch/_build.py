@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels from `csrc/` at first use.
+
+Every `csrc/*.cu` is compiled by nvcc, for Hopper (sm_90a), into one shared
+library with a plain C interface under `agi_lidar_slam_torch/_build/`, named
+by a hash of the sources and flags so an edited source rebuilds. The library
+is loaded with ctypes; pointers and the stream pass as `c_void_p`, ints as
+`c_int`, floats as `c_float`. Nothing is downloaded and no prebuilt kernel
+package is used.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # queries, qmask, points, occ, ktab, n, bucket, k, probes, log2_slots,
+    # sub_voxel, block_sub, block_size, out_sq, out_pts, out_valid, device, stream
+    "octant_knn_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
+                           _P, _P, _P, _I, _P], _I),
+    "octant_knn_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME/bin, else PATH, else the toolkit's default
+    install prefix; raises if there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin): "
+        "the port's CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libagi_lidar_slam_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists; returns
+    its path. Raises RuntimeError with nvcc's output if the build fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        if verbose:
+            print(proc.stdout + proc.stderr, flush=True)
+        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every C signature declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
