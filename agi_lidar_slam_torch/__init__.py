@@ -1,16 +1,20 @@
 """agi_lidar_slam_torch — the PyTorch / CUDA port of agi_lidar_slam_tpu.
 
 The port mirrors the JAX package's module paths and function names, so each
-function has an obvious counterpart. It imports torch and numpy, never jax.
-Two JAX-package modules hold no jax and are shared instead of copied: the
-configuration tree (`agi_lidar_slam_tpu.config`) and the host-side metrics
-(`agi_lidar_slam_tpu.eval.metrics`).
+function has an obvious counterpart. It imports torch and numpy only: nothing
+of jax and nothing of the JAX package. What it needs of the JAX package's
+jax-free modules it keeps as its own copy (`config.py`, `eval/metrics.py`).
 
-The one hand-written GPU kernel is the octant-KNN association kernel
-(`nn/octant_knn.py`, `csrc/octant_knn.cu`), built with nvcc at first use.
+Entry points that make state from nothing (`init_state`, `init_lio_state`,
+`empty_map`, `default_world`, `NavState.identity`, the sim trajectories) put
+it on `cuda` unless the caller passes another device.
+
+The hand-written GPU kernels live in `csrc/` and are built with nvcc at first
+use (`_build.py`): the octant-KNN association kernel (`nn/octant_knn.py`) and
+the two probe kernels (`tools/probe.py`).
 """
 
-from agi_lidar_slam_tpu.config import (
+from .config import (
     FeatureConfig,
     MapConfig,
     PipelineConfig,

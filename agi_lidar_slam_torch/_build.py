@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels from `csrc/` at first use.
 
-Every `csrc/*.cu` is compiled by nvcc, for Hopper (sm_90a), into one shared
-library with a plain C interface under `agi_lidar_slam_torch/_build/`, named
-by a hash of the sources and flags so an edited source rebuilds. The library
+Every `csrc/*.cu` is compiled by its own nvcc process, all started together,
+for Hopper (sm_90a); the objects are linked into one shared library with a
+plain C interface under `agi_lidar_slam_torch/_build/`, named by a hash of the
+sources and flags so an edited source rebuilds. The library
 is loaded with ctypes; pointers and the stream pass as `c_void_p`, ints as
 `c_int`, floats as `c_float`. Nothing is downloaded and no prebuilt kernel
 package is used.
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -31,6 +32,13 @@ _SIGNATURES = {
     "octant_knn_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
                            _P, _P, _P, _I, _P], _I),
     "octant_knn_error_string": ([_I], ctypes.c_char_p),
+    # x, o, n, device, stream
+    "scale2_launch": ([_P, _P, _I, _I, _P], _I),
+    # idx, src, out, n, rows, bucket, device, stream
+    "row_gather_sum_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # driver version out, runtime version out
+    "probe_versions": ([ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
+    "probe_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -63,6 +71,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libagi_lidar_slam_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _check(cmd, rc: int, log: str, verbose: bool) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+    if verbose and log:
+        print(log, flush=True)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu unless the library for these sources exists; returns
     its path. Raises RuntimeError with nvcc's output if the build fails."""
@@ -71,21 +86,28 @@ def build(verbose: bool = False) -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []  # one nvcc per source, all running at once
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(Path(tmp) / f"{src.stem}.o"),
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        try:
+            for cmd, proc in jobs:
+                log, _ = proc.communicate()
+                _check(cmd, proc.returncode, log, verbose)
+        finally:
+            for _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = Path(tmp) / "lib.so"
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *(cmd[-2] for cmd, _ in jobs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _check(link, proc.returncode, proc.stdout, verbose)
+        os.replace(lib, out)  # atomic: concurrent builds race harmlessly
     return out
 
 

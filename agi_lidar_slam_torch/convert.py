@@ -1,23 +1,53 @@
-"""Carry engine state and worlds between the JAX package and the port.
+"""Carry configs, engine state and worlds between the JAX package and the port.
 
-`state_from_numpy` takes the JAX EngineState as nested numpy arrays (for
-example `jax.tree.map(np.asarray, state)`, or nested dicts with the same
-field names) and builds the port's EngineState on a device; `state_to_numpy`
-goes the other way, as nested dicts; `world_from_numpy` builds a BoxWorld.
+`config_from_reference` copies a reference config into the port's class of
+the same name, field by field. `state_from_numpy`, `nav_state_from_numpy` and
+`lio_state_from_numpy` take the JAX EngineState / NavState / LioState as
+nested numpy arrays (for example `jax.tree.map(np.asarray, state)`, or nested
+dicts with the same field names) and build the port's on a device;
+`state_to_numpy` goes the other way, as nested dicts; `world_from_numpy`
+builds a BoxWorld. Nothing here imports the JAX package: the inputs are duck
+typed. Tensors land on `device`, cuda unless the caller passes another.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
+from . import config
+from .device import default_device
+from .estimators.ieskf import IeskfConfig
 from .geometry.se3 import Pose
+from .imu.eskf import EskfNoise, NavState
 from .map.hash_map import HashVoxelMap
 from .pointcloud.cloud import PointBatch
+from .runtime.lio_pipeline import LioConfig, LioState
 from .runtime.pipeline import EngineState
 from .sim.world import BoxWorld
+
+_CONFIG_CLASSES = {cls.__name__: cls for cls in (
+    config.FeatureConfig, config.MapConfig, config.SolverConfig, config.PipelineConfig,
+    IeskfConfig, EskfNoise, LioConfig)}
+
+
+def config_from_reference(obj):
+    """The port's config of the same class name as `obj` (a reference
+    dataclass or NamedTuple), with every field copied by name; nested configs
+    are converted too."""
+    name = type(obj).__name__
+    if name not in _CONFIG_CLASSES:
+        raise TypeError(f"no port config named {name!r}")
+    names = ([f.name for f in dataclasses.fields(obj)] if dataclasses.is_dataclass(obj)
+             else list(obj._fields))
+
+    def value(v):
+        return config_from_reference(v) if type(v).__name__ in _CONFIG_CLASSES else v
+
+    return _CONFIG_CLASSES[name](**{f: value(getattr(obj, f)) for f in names})
 
 
 def _field(node, name):
@@ -25,16 +55,18 @@ def _field(node, name):
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)  # np.array copies read-only views
+    # np.array copies read-only views
+    return torch.from_numpy(np.array(a)).to(default_device(device))
+
+
+def _hmap(node, device) -> HashVoxelMap:
+    return HashVoxelMap(*(_tensor(_field(node, f), device) for f in HashVoxelMap._fields))
 
 
 def state_from_numpy(tree, device=None) -> EngineState:
     """The port's EngineState from a numpy EngineState tree."""
     def pose(node):
         return Pose(_tensor(_field(node, "q"), device), _tensor(_field(node, "t"), device))
-
-    def hmap(node):
-        return HashVoxelMap(*(_tensor(_field(node, f), device) for f in HashVoxelMap._fields))
 
     def batch(node):
         return PointBatch(_tensor(_field(node, "xyz"), device),
@@ -43,16 +75,30 @@ def state_from_numpy(tree, device=None) -> EngineState:
     return EngineState(
         pose=pose(_field(tree, "pose")),
         prev_pose=pose(_field(tree, "prev_pose")),
-        corner_map=hmap(_field(tree, "corner_map")),
-        surf_map=hmap(_field(tree, "surf_map")),
+        corner_map=_hmap(_field(tree, "corner_map"), device),
+        surf_map=_hmap(_field(tree, "surf_map"), device),
         frame=_tensor(_field(tree, "frame"), device),
         prev_corners=batch(_field(tree, "prev_corners")),
         prev_surfs=batch(_field(tree, "prev_surfs")),
     )
 
 
-def state_to_numpy(state: EngineState) -> dict:
-    """Nested dicts of numpy arrays with the EngineState field names."""
+def nav_state_from_numpy(tree, device=None) -> NavState:
+    """The port's NavState from a numpy NavState tree."""
+    return NavState(*(_tensor(_field(tree, f), device) for f in NavState._fields))
+
+
+def lio_state_from_numpy(tree, device=None) -> LioState:
+    """The port's LioState (NavState, P, map, frame) from a numpy LioState tree."""
+    return LioState(x=nav_state_from_numpy(_field(tree, "x"), device),
+                    P=_tensor(_field(tree, "P"), device),
+                    map=_hmap(_field(tree, "map"), device),
+                    frame=_tensor(_field(tree, "frame"), device))
+
+
+def state_to_numpy(state) -> dict:
+    """Nested dicts of numpy arrays with the state's field names (any
+    NamedTuple tree of tensors: EngineState, LioState, NavState)."""
     def walk(node):
         if isinstance(node, torch.Tensor):
             return node.detach().cpu().numpy()

@@ -18,8 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from agi_lidar_slam_tpu.config import MapConfig, SolverConfig
-
+from ..config import MapConfig, SolverConfig
 from ..fit.geometry_fit import fit_lines, fit_planes
 from ..geometry import se3, so3
 from ..map.hash_map import HashVoxelMap
@@ -51,6 +50,14 @@ def _ktab(m: HashVoxelMap, cfg: MapConfig):
     (nn/knn.knn's dispatch). Built once per solve so every association pass
     reuses it."""
     return build_ktab(m) if cfg.neighborhood == "octant8" and cfg.knn_kernel != "xla" else None
+
+
+def _cache_motion(pose: se3.Pose, q_ref: torch.Tensor, t_ref: torch.Tensor,
+                  lever: float = 30.0) -> torch.Tensor:
+    """Effective motion since a cached probe: |dt| + lever * |dtheta| (the
+    worst-case query displacement at `lever` meters range)."""
+    dth = so3.quat_log(so3.quat_mul(so3.quat_conj(q_ref), pose.q))
+    return torch.linalg.vector_norm(pose.t - t_ref) + lever * torch.linalg.vector_norm(dth)
 
 
 def _huber_sqrt_weight(r_norm: torch.Tensor, delta: float) -> torch.Tensor:

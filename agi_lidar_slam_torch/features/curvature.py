@@ -13,8 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from agi_lidar_slam_tpu.config import FeatureConfig
-
+from ..config import FeatureConfig
 from ..pointcloud.cloud import PointBatch, ScanGrid
 from ..pointcloud.voxel import prefix_sum, voxel_downsample_aux
 

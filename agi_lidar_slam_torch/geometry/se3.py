@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import default_device
 from . import so3
 
 
@@ -25,6 +26,8 @@ class Pose(NamedTuple):
 
     @staticmethod
     def identity(shape=(), dtype=torch.float32, device=None) -> "Pose":
+        """Identity poses of `shape` on `device` (default: cuda)."""
+        device = default_device(device)
         return Pose(so3.quat_identity(shape, dtype, device),
                     torch.zeros(tuple(shape) + (3,), dtype=dtype, device=device))
 

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from ..device import default_device
+
 _EPS = 1e-8
 
 
@@ -76,6 +78,8 @@ def log_matrix(R: torch.Tensor) -> torch.Tensor:
 
 
 def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity quaternions of `shape` on `device` (default: cuda)."""
+    device = default_device(device)
     q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
     q[..., 0] = 1.0
     return q
@@ -101,7 +105,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    # no constant tensor from a Python list: on the card that is a host-to-device
+    # copy, and it synchronizes
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_exp(w: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from agi_lidar_slam_tpu.config import MapConfig
-
+from ..config import MapConfig
+from ..device import default_device
 from ..pointcloud.voxel import div_exact
 
 EMPTY_KEY = -(2**31) + 1  # sentinel block coordinate (all three axes)
@@ -54,6 +54,8 @@ def map_rows(cfg: MapConfig) -> int:
 
 
 def empty_map(cfg: MapConfig, device=None) -> HashVoxelMap:
+    """An empty map on `device` (default: cuda)."""
+    device = default_device(device)
     rows = map_rows(cfg)
     B = cfg.bucket
     return HashVoxelMap(

@@ -8,8 +8,9 @@ Two neighborhood modes (MapConfig.neighborhood):
   the gather path here: deduplicated block lookups, one gather of the
   candidate rows, k argmin passes.
 
-`knn_brute` is the exact oracle used by the parity tests. The candidate cache
-(`knn_cand`, `knn_reselect`) is not ported yet.
+The candidate cache (`knn_cand`, `knn_reselect`, `make_cand`) probes the map
+once for C candidates per query and re-ranks them at moved queries.
+`knn_brute` is the exact oracle used by the parity tests.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from agi_lidar_slam_tpu.config import MapConfig
-
+from ..config import MapConfig
 from ..map.hash_map import HashVoxelMap, block_coords, lookup_dedup
 from ..pointcloud.voxel import div_exact
 
@@ -101,6 +101,52 @@ def _smallest_k(d: torch.Tensor, k: int):
         idxs.append(i)
         d = torch.where(cols == i[:, None], torch.full_like(d, _BIG), d)
     return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
+
+
+class CandCache(NamedTuple):
+    """Cached world-frame KNN candidates, as the association probe returns
+    them: points (N,C,3) in ascending distance at the probe, valid (N,C).
+
+    The reference keeps coordinate planes (C,N) because a 3-wide minor axis
+    pads to 128 lanes on a TPU. On the card a contiguous (N,C,3) tensor is
+    read coalesced by every elementwise kernel, and it is the layout the
+    octant-KNN kernel writes, so the cache keeps the kernel's output as it is:
+    no transposes or plane copies per probe."""
+
+    points: torch.Tensor  # (N,C,3)
+    valid: torch.Tensor  # (N,C)
+
+
+def make_cand(res: KnnResult) -> CandCache:
+    """CandCache from a KnnResult."""
+    return CandCache(res.points, res.valid)
+
+
+def knn_cand(m: HashVoxelMap, queries: torch.Tensor, qmask: torch.Tensor, C: int,
+             cfg: MapConfig, ktab: torch.Tensor | None = None, k: int | None = None):
+    """Probe the map for C candidates per query, returned as a CandCache.
+
+    With `k`, also returns the k nearest as a KnnResult: the candidates come
+    in ascending distance, so they are the first k."""
+    full = knn(m, queries, qmask, C, cfg, ktab=ktab)
+    cache = make_cand(full)
+    if k is None:
+        return cache
+    return cache, KnnResult(full.points[:, :k], full.sq_dists[:, :k], full.valid[:, :k])
+
+
+def knn_reselect(cand: CandCache, queries: torch.Tensor, qmask: torch.Tensor,
+                 k: int) -> KnnResult:
+    """Re-select the k nearest from a cached candidate list at moved queries:
+    no map traffic, k argmin passes over the C candidates. Ties go to the
+    first candidate, the reference's first-hit rule."""
+    dx, dy, dz = (cand.points - queries[:, None, :]).unbind(-1)
+    d2 = dx * dx + dy * dy + dz * dz  # (N,C)
+    d2 = torch.where(cand.valid & qmask[:, None], d2, torch.full_like(d2, _BIG))
+    sq, idx = _smallest_k(d2, k)
+    valid = sq < _BIG * 0.5
+    pts = torch.gather(cand.points, 1, idx[..., None].expand(idx.shape + (3,)))
+    return KnnResult(torch.where(valid[..., None], pts, torch.zeros_like(pts)), sq, valid)
 
 
 def knn_brute(ref_pts: torch.Tensor, ref_mask: torch.Tensor, queries: torch.Tensor,

@@ -23,8 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from agi_lidar_slam_tpu.config import MapConfig
-
+from ..config import MapConfig
 from .. import _build
 from ..map.hash_map import (HashVoxelMap, _first_true, block_coords, hash_packed, map_rows,
                               pack_key)

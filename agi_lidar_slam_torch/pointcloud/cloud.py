@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import default_device
+
 
 class ScanGrid(NamedTuple):
     """A single lidar sweep as a ring-major grid.
@@ -54,7 +56,8 @@ def grid_from_unorganized(
     device=None,
 ) -> ScanGrid:
     """Host-side: bin an unorganized cloud (e.g. KITTI .bin) into a ring-major
-    grid by elevation/azimuth, returned as tensors on `device`."""
+    grid by elevation/azimuth, returned as tensors on `device` (default: cuda)."""
+    device = default_device(device)
     xyz = np.asarray(xyz, dtype=np.float32)
     r = np.linalg.norm(xyz, axis=-1)
     keep = r > min_range  # blind-zone removal

@@ -70,6 +70,12 @@ def _centers(k: torch.Tensor, voxel_size: float) -> torch.Tensor:
     return (vc.to(torch.float32) - _HALF_GRID + 0.5) * voxel_size
 
 
+def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, voxel_size: float,
+                     capacity: int) -> PointBatch:
+    """Centroid-per-voxel downsample of a padded point set. (N,3),(N) -> (capacity,3)."""
+    return voxel_downsample_aux(xyz, mask, voxel_size, capacity, aux=None)[0]
+
+
 def voxel_downsample_aux(
     xyz: torch.Tensor,
     mask: torch.Tensor,

@@ -4,7 +4,7 @@
 One call per scan: feature extraction on the raw sweep -> feature downsample
 -> scan-to-map GN with in-loop constant-velocity deskew -> final deskew ->
 map insertion -> rolling map bound. PyTorch runs it eagerly; the state lives
-on whatever device `init_state` put it on.
+on the device `init_state` put it on (cuda unless asked otherwise).
 
 Not ported, and raising: the scan-to-scan `odometry_stage` and the LeGO
 `two_step` solver. `process_scan_chunk` (a launch batcher) is not ported.
@@ -16,8 +16,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from agi_lidar_slam_tpu.config import PipelineConfig
-
+from ..config import PipelineConfig
+from ..device import default_device
 from ..estimators.gn_scan2map import GnStats, solve_scan2map
 from ..features.curvature import extract_features_timed
 from ..geometry import se3, so3
@@ -47,6 +47,8 @@ class ScanResult(NamedTuple):
 
 
 def init_state(cfg: PipelineConfig, device=None) -> EngineState:
+    """An engine at rest with empty maps, on `device` (default: cuda)."""
+    device = default_device(device)
     f = cfg.features
 
     def batch(n):

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import default_device
 from ..geometry import se3, so3
 from ..pointcloud.cloud import ScanGrid
 
@@ -23,7 +24,7 @@ class BoxWorld(NamedTuple):
 
 
 def _generator(seed: int, device) -> torch.Generator:
-    g = torch.Generator(device=torch.device(device) if device is not None else "cpu")
+    g = torch.Generator(device=torch.device(device))
     g.manual_seed(seed)
     return g
 
@@ -31,7 +32,9 @@ def _generator(seed: int, device) -> torch.Generator:
 def default_world(seed: int = 0, n_pillars: int = 24, extent: float = 18.0,
                   device=None) -> BoxWorld:
     """A walled arena with a ground slab and random pillars, with a clear
-    corridor along +x so trajectories from the origin never enter a pillar."""
+    corridor along +x so trajectories from the origin never enter a pillar.
+    Made on `device` (default: cuda)."""
+    device = default_device(device)
     g = _generator(seed, device)
     e = extent
     boxes_lo = [
@@ -58,7 +61,9 @@ def default_world(seed: int = 0, n_pillars: int = 24, extent: float = 18.0,
 
 def ray_dirs(rings: int, width: int, fov_up_deg: float, fov_down_deg: float,
              device=None) -> torch.Tensor:
-    """Sensor-frame unit ray directions (R, W, 3); azimuth sweeps column-major."""
+    """Sensor-frame unit ray directions (R, W, 3) on `device` (default:
+    cuda); azimuth sweeps column-major."""
+    device = default_device(device)
     elev = torch.deg2rad(torch.linspace(fov_down_deg, fov_up_deg, rings, device=device))
     azim = -math.pi + (2 * math.pi / width) * torch.arange(width, device=device)
     ce, se_ = torch.cos(elev)[:, None], torch.sin(elev)[:, None]

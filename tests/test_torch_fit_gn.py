@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from agi_lidar_slam_torch.convert import config_from_reference as port_cfg
 from agi_lidar_slam_torch.estimators import gn_scan2map as tgn
 from agi_lidar_slam_torch.fit import geometry_fit as tfit
 from agi_lidar_slam_torch.geometry import se3 as tse3
@@ -30,6 +31,7 @@ from agi_lidar_slam_tpu.geometry import se3 as jse3
 from agi_lidar_slam_tpu.pointcloud.cloud import PointBatch as JBatch
 
 SOLVER = SolverConfig()
+T_SOLVER = port_cfg(SOLVER)  # the port's own SolverConfig, same fields
 
 # the reference jitted: one compile per function, not one per primitive
 # (the suite serializes compiles across workers)
@@ -126,7 +128,7 @@ def test_normal_equations():
         jgn.Correspondences(*map(jnp.asarray, corr)), SOLVER)
     tH, tg, tst = tgn.normal_equations(
         tse3.Pose(*map(_t, pose)), TBatch(_t(c_xyz), _t(cm)), TBatch(_t(s_xyz), _t(sm)),
-        tgn.Correspondences(*map(_t, corr)), SOLVER)
+        tgn.Correspondences(*map(_t, corr)), T_SOLVER)
     assert np.all(np.isfinite(tH.numpy()))
     scale = np.abs(np.asarray(jH)).max()
     np.testing.assert_allclose(tH.numpy(), np.asarray(jH), rtol=1e-5, atol=1e-5 * scale)
@@ -148,19 +150,19 @@ def test_solve_delta(degenerate):
     g = rng.normal(size=6) * 50
     H, g = H.astype(np.float32), g.astype(np.float32)
     jd, jdeg = j_solve_delta(jnp.asarray(H), jnp.asarray(g), SOLVER)
-    td, tdeg = tgn.solve_delta(_t(H), _t(g), SOLVER)
+    td, tdeg = tgn.solve_delta(_t(H), _t(g), T_SOLVER)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-5)
     assert bool(tdeg) == bool(jdeg) == degenerate
 
 
 def test_unported_solver_branches_raise():
-    cfg = preset_aloam_kitti64()
-    pose = tse3.Pose.identity()
+    cfg = port_cfg(preset_aloam_kitti64())
+    pose = tse3.Pose.identity(device="cpu")
     b = TBatch(torch.zeros((4, 3)), torch.zeros(4, dtype=torch.bool))
-    cm, sm = t_empty_map(cfg.corner_map), t_empty_map(cfg.surf_map)
+    cm, sm = t_empty_map(cfg.corner_map, "cpu"), t_empty_map(cfg.surf_map, "cpu")
     args = (pose, b, b, cm, sm, cfg.corner_map, cfg.surf_map)
     with pytest.raises(NotImplementedError, match="cand_k"):
-        tgn.solve_scan2map(*args, SolverConfig(cand_k=8))
+        tgn.solve_scan2map(*args, port_cfg(SolverConfig(cand_k=8)))
     with pytest.raises(NotImplementedError, match="knn_fn"):
         tgn.solve_scan2map(*args, cfg.solver, knn_fn=lambda *a, **k: None)
     with pytest.raises(NotImplementedError, match="axis_name"):

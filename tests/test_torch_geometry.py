@@ -131,4 +131,4 @@ def test_pose_identity_and_matrix():
     t = np.asarray([1.0, 2.0, 3.0], np.float32)
     j = jax.jit(lambda q, t: (jse3.Pose(q, t).matrix(), jse3.Pose.identity((2,)).q))(q, t)
     _cmp(j[0], tse3.Pose(_T(q), _T(t)).matrix())
-    _cmp(j[1], tse3.Pose.identity((2,)).q)
+    _cmp(j[1], tse3.Pose.identity((2,), device="cpu").q)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from agi_lidar_slam_torch.convert import config_from_reference as port_cfg
 from agi_lidar_slam_torch.map import hash_map as thm
 from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_tpu.config import MapConfig
@@ -19,6 +20,7 @@ from agi_lidar_slam_tpu.map.planar import build_planar
 CFG = MapConfig(sub_voxel=0.5, block_sub=4, log2_slots=10, probes=8, neighborhood="octant8")
 # 2^6 slots for ~200 distinct blocks: chains fill, claims conflict, points drop
 TIGHT = MapConfig(sub_voxel=0.25, block_sub=2, log2_slots=6, probes=8, neighborhood="full27")
+TCFG = port_cfg(CFG)  # the port's own MapConfig, same fields
 
 # the reference jitted: one compile per function and shape, not one per
 # primitive (the suite serializes compiles across workers)
@@ -68,7 +70,7 @@ def test_block_coords_negative_and_boundaries():
     xyz[:16] = np.stack([edges, -edges, edges * 0.999], axis=-1)
     for cfg in (CFG, MapConfig(sub_voxel=0.6, block_sub=4), MapConfig(sub_voxel=0.8, block_sub=3)):
         jb, js = j_block_coords(jnp.asarray(xyz), cfg)
-        tb, ts = thm.block_coords(torch.from_numpy(xyz), cfg)
+        tb, ts = thm.block_coords(torch.from_numpy(xyz), port_cfg(cfg))
         _eq(jb, tb)
         _eq(js, ts)
         # floor-division semantics, independently of either library
@@ -88,12 +90,13 @@ def _batches(seed, n, extent):
 def test_insert_with_stats_exact(cfg):
     """Two inserts (the second into the first's map): keys, occ, points and
     n_dropped all exact, including claim conflicts and full chains."""
-    jm, tm = j_empty_map(cfg), thm.empty_map(cfg)
+    jm, tm = j_empty_map(cfg), thm.empty_map(port_cfg(cfg), "cpu")
     for seed in (2, 3):
         pts, mask = _batches(seed, 3000, 9.0)
         jm, jd = j_insert_with_stats(jm, jnp.asarray(pts), jnp.asarray(mask), cfg)
         tm_before = tm
-        tm, td = thm.insert_with_stats(tm, torch.from_numpy(pts), torch.from_numpy(mask), cfg)
+        tm, td = thm.insert_with_stats(tm, torch.from_numpy(pts), torch.from_numpy(mask),
+                                       port_cfg(cfg))
         assert int(tm_before.num_points()) <= int(tm.num_points())  # input map untouched
         for f in ("keys", "occ", "points"):
             _eq(getattr(jm, f), getattr(tm, f))
@@ -105,27 +108,27 @@ def test_insert_with_stats_exact(cfg):
 def test_lookup_dedup_and_lookup():
     pts, mask = _batches(4, 4000, 12.0)
     jm = j_insert(j_empty_map(CFG), jnp.asarray(pts), jnp.asarray(mask), CFG)
-    tm = thm.insert(thm.empty_map(CFG), torch.from_numpy(pts), torch.from_numpy(mask), CFG)
+    tm = thm.insert(thm.empty_map(TCFG, "cpu"), torch.from_numpy(pts), torch.from_numpy(mask), TCFG)
     rng = np.random.default_rng(5)
     q = rng.uniform(-14, 14, (5000, 3)).astype(np.float32)
     qv = rng.uniform(size=5000) > 0.3
     jbc, _ = j_block_coords(jnp.asarray(q), CFG)
-    tbc, _ = thm.block_coords(torch.from_numpy(q), CFG)
-    _eq(j_lookup(jm.keys, jbc, CFG), thm.lookup(tm.keys, tbc, CFG))
+    tbc, _ = thm.block_coords(torch.from_numpy(q), TCFG)
+    _eq(j_lookup(jm.keys, jbc, CFG), thm.lookup(tm.keys, tbc, TCFG))
     _eq(j_lookup_dedup(jm.keys, jbc, jnp.asarray(qv), CFG),
-        thm.lookup_dedup(tm.keys, tbc, torch.from_numpy(qv), CFG))
+        thm.lookup_dedup(tm.keys, tbc, torch.from_numpy(qv), TCFG))
     # all-masked batch: every slot absent
-    none = thm.lookup_dedup(tm.keys, tbc, torch.zeros(5000, dtype=torch.bool), CFG)
+    none = thm.lookup_dedup(tm.keys, tbc, torch.zeros(5000, dtype=torch.bool), TCFG)
     assert bool((none == -1).all())
 
 
 def test_bound_map_and_ktab():
     pts, mask = _batches(6, 4000, 30.0)
     jm = j_insert(j_empty_map(CFG), jnp.asarray(pts), jnp.asarray(mask), CFG)
-    tm = thm.insert(thm.empty_map(CFG), torch.from_numpy(pts), torch.from_numpy(mask), CFG)
+    tm = thm.insert(thm.empty_map(TCFG, "cpu"), torch.from_numpy(pts), torch.from_numpy(mask), TCFG)
     center = np.asarray([3.3, -7.1, 0.4], np.float32)
     jb = j_bound_map(jm, jnp.asarray(center), 12.0, CFG)
-    tb = thm.bound_map(tm, torch.from_numpy(center), 12.0, CFG)
+    tb = thm.bound_map(tm, torch.from_numpy(center), 12.0, TCFG)
     for f in ("keys", "occ", "points"):
         _eq(getattr(jb, f), getattr(tb, f))
     assert int(tb.num_blocks()) < int(tm.num_blocks())

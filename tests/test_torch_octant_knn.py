@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from agi_lidar_slam_torch import _build
+from agi_lidar_slam_torch.convert import config_from_reference as port_cfg
 from agi_lidar_slam_torch.map import hash_map as thm
 from agi_lidar_slam_torch.nn import knn as tknn
 from agi_lidar_slam_torch.nn import octant_knn
@@ -46,7 +47,8 @@ def _maps(cfg, seed=0, n=3000, extent=12.0):
     pts = np.random.default_rng(seed).uniform(-extent, extent, (n, 3)).astype(np.float32)
     ones = np.ones((n,), bool)
     jm = j_insert(j_empty_map(cfg), jnp.asarray(pts), jnp.asarray(ones), cfg)
-    tm = thm.insert(thm.empty_map(cfg), torch.from_numpy(pts), torch.from_numpy(ones), cfg)
+    tcfg = port_cfg(cfg)
+    tm = thm.insert(thm.empty_map(tcfg, "cpu"), torch.from_numpy(pts), torch.from_numpy(ones), tcfg)
     return jm, tm
 
 
@@ -80,7 +82,7 @@ def test_octant_ref_matches_tpu_kernel(case):
     jm, tm = _maps(cfg)
     q, qm = _queries(n, masked=masked)
     j = j_knn_vmem(jm, jnp.asarray(q), jnp.asarray(qm), k, cfg)
-    t = octant_knn.knn_octant(tm, torch.from_numpy(q), torch.from_numpy(qm), k, cfg)
+    t = octant_knn.knn_octant(tm, torch.from_numpy(q), torch.from_numpy(qm), k, port_cfg(cfg))
     _check(*j, *t)
     if masked == 1.0:
         assert not bool(t[2].any())
@@ -91,14 +93,15 @@ def test_octant_ref_matches_gather_path(cfg):
     jm, tm = _maps(cfg, seed=3)
     q, qm = _queries(256, seed=4)
     j = j_knn(jm, jnp.asarray(q), jnp.asarray(qm), 5, cfg)  # XLA gather path on CPU
-    t = octant_knn.knn_octant_ref(tm, torch.from_numpy(q), torch.from_numpy(qm), 5, cfg)
+    t = octant_knn.knn_octant_ref(tm, torch.from_numpy(q), torch.from_numpy(qm), 5, port_cfg(cfg))
     _check(j.sq_dists, j.points, j.valid, *t)
 
 
 def test_empty_map():
-    tm = thm.empty_map(CFG)
+    tm = thm.empty_map(port_cfg(CFG), "cpu")
     q = torch.zeros((64, 3))
-    sq, pts, valid = octant_knn.knn_octant(tm, q, torch.ones(64, dtype=torch.bool), 5, CFG)
+    sq, pts, valid = octant_knn.knn_octant(tm, q, torch.ones(64, dtype=torch.bool), 5,
+                                           port_cfg(CFG))
     assert not bool(valid.any())
     assert bool((sq == 1e30).all()) and bool((pts == 0).all())
 
@@ -110,7 +113,7 @@ def test_gather_path_matches_reference(cfg):
     jm, tm = _maps(cfg, seed=5)
     q, qm = _queries(256, seed=6)
     j = j_knn(jm, jnp.asarray(q), jnp.asarray(qm), 5, cfg)
-    gather_cfg = dataclasses.replace(cfg, knn_kernel="xla")  # octant8 off the kernel
+    gather_cfg = dataclasses.replace(port_cfg(cfg), knn_kernel="xla")  # octant8 off the kernel
     t = tknn.knn(tm, torch.from_numpy(q), torch.from_numpy(qm), 5, gather_cfg)
     _check(j.sq_dists, j.points, j.valid, t.sq_dists, t.points, t.valid)
 
@@ -127,20 +130,21 @@ def test_knn_brute_matches_reference():
 
 
 def test_wrapper_rejects_bad_inputs():
-    tm = thm.empty_map(CFG)
+    tcfg, tfull27 = port_cfg(CFG), port_cfg(FULL27)
+    tm = thm.empty_map(tcfg, "cpu")
     q, qm = torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool)
     with pytest.raises(ValueError, match="k <= 16"):
-        octant_knn.knn_octant(tm, q, qm, 17, CFG)
+        octant_knn.knn_octant(tm, q, qm, 17, tcfg)
     with pytest.raises(ValueError, match="queries"):
-        octant_knn.knn_octant(tm, q.double(), qm, 5, CFG)
+        octant_knn.knn_octant(tm, q.double(), qm, 5, tcfg)
     with pytest.raises(ValueError, match="contiguous"):
-        octant_knn.knn_octant(tm, torch.zeros((3, 8)).T, qm, 5, CFG)
+        octant_knn.knn_octant(tm, torch.zeros((3, 8)).T, qm, 5, tcfg)
     with pytest.raises(ValueError, match="octant8"):
-        octant_knn.knn_octant(tm, q, qm, 5, FULL27)
+        octant_knn.knn_octant(tm, q, qm, 5, tfull27)
     # neither cpu nor cuda: no silent fallback to the plain version
     meta = thm.HashVoxelMap(*(t.to("meta") for t in tm))
     with pytest.raises(ValueError, match="cpu or cuda"):
-        octant_knn.knn_octant(meta, q.to("meta"), qm.to("meta"), 5, CFG)
+        octant_knn.knn_octant(meta, q.to("meta"), qm.to("meta"), 5, tcfg)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

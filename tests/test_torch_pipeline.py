@@ -7,8 +7,7 @@
   correspondence counts. Measured on the CPU: at most 4.8e-7 m and 8.8e-8
   (f32 reductions in another order; the correspondence counts are equal).
 * One step from a JAX state carried over mid-sequence (convert.py).
-* The port never imports jax, and shares only the reference's config and
-  eval.metrics modules.
+* The port never imports jax or anything of the JAX package.
 """
 
 import dataclasses
@@ -24,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from agi_lidar_slam_torch.convert import state_from_numpy, state_to_numpy
+from agi_lidar_slam_torch.convert import config_from_reference, state_from_numpy, state_to_numpy
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid as TScanGrid
 from agi_lidar_slam_torch.runtime import pipeline as tpipe
 from agi_lidar_slam_tpu.config import preset_aloam_kitti64
@@ -40,6 +39,7 @@ CFG = dataclasses.replace(
     corner_map=dataclasses.replace(_BASE.corner_map, log2_slots=10),
     surf_map=dataclasses.replace(_BASE.surf_map, log2_slots=11),
 )
+T_CFG = config_from_reference(CFG)  # the port's own PipelineConfig, same fields
 N_SCANS = 5
 T_TOL, Q_TOL = 1e-3, 1e-3
 
@@ -97,9 +97,9 @@ def _check_step(jres, tres):
 
 def test_slice_parity_5_scans():
     scans, states, results = _reference_run()
-    state = state_from_numpy(states[0])
+    state = state_from_numpy(states[0], "cpu")
     for s, jres in zip(scans, results):
-        state, tres = tpipe.process_scan(state, _tscan(s), CFG)
+        state, tres = tpipe.process_scan(state, _tscan(s), T_CFG)
         _check_step(jres, tres)
     assert int(results[-1].stats.n_surf) > 100  # the engine tracks: real correspondences
     assert int(state.frame) == N_SCANS
@@ -107,13 +107,13 @@ def test_slice_parity_5_scans():
 
 def test_one_step_from_carried_over_state():
     scans, states, results = _reference_run()
-    carried = state_from_numpy(states[3])
+    carried = state_from_numpy(states[3], "cpu")
     # the carried map is the reference's, bit for bit, and converts back
     back = state_to_numpy(carried)
     np.testing.assert_array_equal(back["surf_map"]["keys"], states[3].surf_map.keys)
     np.testing.assert_array_equal(back["corner_map"]["points"], states[3].corner_map.points)
     kept = [t.clone() for t in carried.surf_map]
-    state, tres = tpipe.process_scan(carried, _tscan(scans[3]), CFG)
+    state, tres = tpipe.process_scan(carried, _tscan(scans[3]), T_CFG)
     _check_step(results[3], tres)
     # the step did not modify the state it was given
     assert all(torch.equal(a, b) for a, b in zip(kept, carried.surf_map))
@@ -121,40 +121,56 @@ def test_one_step_from_carried_over_state():
 
 
 def test_unported_pipeline_branches_raise():
-    state = tpipe.init_state(CFG)
+    state = tpipe.init_state(T_CFG, "cpu")
     scan = TScanGrid(torch.zeros((4, 60, 3)), torch.zeros((4, 60), dtype=torch.bool),
                      torch.zeros((4, 60)))
     for field in ("odometry_stage", "two_step"):
         with pytest.raises(NotImplementedError, match=field):
-            tpipe.process_scan(state, scan, dataclasses.replace(CFG, **{field: True}))
+            tpipe.process_scan(state, scan, dataclasses.replace(T_CFG, **{field: True}))
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter where `import jax` fails, the port imports and
-    runs one CPU scan (octant8 maps, so the kernel module too), loading no
-    JAX-package module beyond the shared config and eval.metrics."""
+    """In a fresh interpreter where `jax` and the JAX package cannot be
+    imported, every module of the port and chip_smoke.py import, and one CPU
+    scan of each engine (odometry with octant8 maps, so the kernel module
+    too, and LIO) runs, loading no module of either."""
     code = textwrap.dedent("""
-        import sys
-        sys.modules["jax"] = None  # any `import jax` now raises ImportError
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None  # any `import jax...` now raises ImportError
+        sys.modules["agi_lidar_slam_tpu"] = None
         import torch
+        import agi_lidar_slam_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        import chip_smoke
         from agi_lidar_slam_torch import preset_aloam_kitti64
         from agi_lidar_slam_torch.geometry import se3
+        from agi_lidar_slam_torch.runtime import lio_pipeline as lio
         from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
+        from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose
         from agi_lidar_slam_torch.sim.world import default_world, simulate_scan
-        from agi_lidar_slam_tpu.eval.metrics import ate_rmse
         cfg = preset_aloam_kitti64()
         world = default_world(seed=1, device="cpu")
-        p = se3.Pose.identity()
+        p = se3.Pose.identity(device="cpu")
         state, res = process_scan(init_state(cfg, "cpu"),
                                   simulate_scan(world, p, p, rings=16, width=900), cfg)
         assert bool(torch.isfinite(res.pose.t).all())
-        loaded = sorted(m for m in sys.modules if m.startswith("agi_lidar_slam_tpu"))
-        print(",".join(loaded))
+        lcfg = lio.LioConfig()
+        p1 = circle_pose(0.1, 8.0, 0.25, device="cpu")
+        scan = simulate_scan(world, p, p1, rings=16, width=900)
+        gy, ac = circle_imu(torch.arange(20) * 0.005, 8.0, 0.25)
+        win = lio.ImuWindow(gy, ac, torch.full((20,), 0.005), torch.ones(20, dtype=torch.bool))
+        lstate, lres = lio.process_lio_scan(lio.init_lio_state(lcfg, device="cpu"),
+                                            scan.xyz.reshape(-1, 3),
+                                            (scan.time * 0.1).reshape(-1),
+                                            scan.mask.reshape(-1), win, lcfg)
+        assert bool(torch.isfinite(lres.x.p).all()) and int(lstate.frame) == 1
+        print("loaded:" + ",".join(sorted(m for m in sys.modules
+                              if m.startswith(("jax", "agi_lidar_slam_tpu"))
+                              and sys.modules[m] is not None)))
     """)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    loaded = set(out.stdout.strip().splitlines()[-1].split(","))
-    assert loaded <= {"agi_lidar_slam_tpu", "agi_lidar_slam_tpu.config",
-                      "agi_lidar_slam_tpu.eval", "agi_lidar_slam_tpu.eval.metrics"}, loaded
+    assert out.stdout.strip().splitlines()[-1] == "loaded:", out.stdout

@@ -27,7 +27,7 @@ j_default_world = jax.jit(jworld.default_world, static_argnames=("seed", "n_pill
 
 def test_simulate_scan_noise_free():
     jw = j_default_world(seed=5)
-    tw = world_from_numpy(np.asarray(jw.lo), np.asarray(jw.hi))
+    tw = world_from_numpy(np.asarray(jw.lo), np.asarray(jw.hi), device="cpu")
     q0, q1 = np.asarray(jax.jit(jso3.quat_exp)(np.asarray([[0.0, 0.01, 0.3],
                                                           [0.0, 0.01, 0.33]], np.float32)))
     p0 = jse3.Pose(q0, np.asarray([1.0, -2.0, 0.1], np.float32))
@@ -57,9 +57,9 @@ def test_ray_dirs_and_raycast():
         return d, jworld._raycast_boxes(origins, d, world, 80.0)
 
     jd, jr = (np.asarray(a) for a in reference(origins, jw))
-    td = tworld.ray_dirs(8, 64, 2.0, -24.8)
+    td = tworld.ray_dirs(8, 64, 2.0, -24.8, device="cpu")
     np.testing.assert_allclose(td.numpy(), jd, rtol=0, atol=1e-6)
-    tw = world_from_numpy(np.asarray(jw.lo), np.asarray(jw.hi))
+    tw = world_from_numpy(np.asarray(jw.lo), np.asarray(jw.hi), device="cpu")
     tr = tworld._raycast_boxes(torch.from_numpy(origins), td, tw, 80.0).numpy()
     hit = np.isfinite(jr) & np.isfinite(tr)
     assert hit.mean() > 0.5
@@ -70,9 +70,9 @@ def test_default_world_generator_is_explicit():
     """The port draws its pillars from its own torch.Generator: the same seed
     gives the same world, another seed another one; walls and ground match
     the reference's."""
-    a = tworld.default_world(seed=3, n_pillars=10)
-    b = tworld.default_world(seed=3, n_pillars=10)
-    c = tworld.default_world(seed=4, n_pillars=10)
+    a = tworld.default_world(seed=3, n_pillars=10, device="cpu")
+    b = tworld.default_world(seed=3, n_pillars=10, device="cpu")
+    c = tworld.default_world(seed=4, n_pillars=10, device="cpu")
     assert torch.equal(a.lo, b.lo) and not torch.equal(a.lo, c.lo)
     jw = j_default_world(seed=3, n_pillars=10)
     np.testing.assert_array_equal(a.lo[:5].numpy(), np.asarray(jw.lo)[:5])

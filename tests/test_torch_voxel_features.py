@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from agi_lidar_slam_torch.convert import config_from_reference as port_cfg
 from agi_lidar_slam_torch.features import curvature as tcurv
 from agi_lidar_slam_torch.pointcloud import voxel as tvox
 from agi_lidar_slam_torch.pointcloud import cloud as tcloud
@@ -33,6 +34,7 @@ from agi_lidar_slam_tpu.pointcloud import voxel as jvox
 from agi_lidar_slam_tpu.sim.world import default_world, simulate_scan
 
 FEAT = preset_aloam_kitti64().features
+T_FEAT = port_cfg(FEAT)  # the port's own FeatureConfig, same fields
 
 
 def _to_t(x):
@@ -52,7 +54,7 @@ def test_grid_from_unorganized():
     rng = np.random.default_rng(2)
     xyz = (rng.normal(size=(5000, 3)) * [20, 20, 2]).astype(np.float32)
     j = jcloud.grid_from_unorganized(xyz, 64, 512, 2.0, -24.8)
-    t = tcloud.grid_from_unorganized(xyz, 64, 512, 2.0, -24.8)
+    t = tcloud.grid_from_unorganized(xyz, 64, 512, 2.0, -24.8, device="cpu")
     for a, b in zip(j, t):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     assert int(t.mask.sum()) > 1000
@@ -90,10 +92,10 @@ def test_curvature_and_occlusion():
     js, ts = _scan()
     (jc, jv), jo = jax.jit(lambda s: (jcurv.curvature(s, FEAT),
                                       jcurv.occlusion_mask(s, FEAT)))(js)
-    tc, tv = tcurv.curvature(ts, FEAT)
+    tc, tv = tcurv.curvature(ts, T_FEAT)
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(jo), tcurv.occlusion_mask(ts, FEAT).numpy())
+    np.testing.assert_array_equal(np.asarray(jo), tcurv.occlusion_mask(ts, T_FEAT).numpy())
 
 
 def test_extract_features_timed_16x900():
@@ -101,7 +103,7 @@ def test_extract_features_timed_16x900():
     Unpicked slots (mask False) hold whatever top-k left there, on both sides."""
     js, ts = _scan()
     j = jax.jit(jcurv.extract_features_timed, static_argnums=1)(js, FEAT)
-    t = tcurv.extract_features_timed(ts, FEAT)
+    t = tcurv.extract_features_timed(ts, T_FEAT)
     assert int(t.corners.mask.sum()) > 50 and int(t.surfs.mask.sum()) > 500
     for jb, jtau, tb, ttau in [(j.corners, j.corner_tau, t.corners, t.corner_tau),
                                (j.surfs, j.surf_tau, t.surfs, t.surf_tau),
@@ -117,4 +119,4 @@ def test_segmentation_branch_raises():
     ts = TScanGrid(torch.ones((4, 60, 3)), torch.ones((4, 60), dtype=torch.bool),
                    torch.zeros((4, 60)))
     with pytest.raises(NotImplementedError, match="segmentation"):
-        tcurv.extract_features_timed(ts, dataclasses.replace(FEAT, segmentation=True))
+        tcurv.extract_features_timed(ts, dataclasses.replace(T_FEAT, segmentation=True))
