@@ -31,6 +31,8 @@ _SIGNATURES = {
     # sub_voxel, block_sub, block_size, out_sq, out_pts, out_valid, device, stream
     "octant_knn_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
                            _P, _P, _P, _I, _P], _I),
+    # bucket, tile out, stage_rows out, smem_bytes out
+    "octant_knn_launch_shape": ([_I] + 3 * [ctypes.POINTER(_I)], _I),
     "octant_knn_error_string": ([_I], ctypes.c_char_p),
     # x, o, n, device, stream
     "scale2_launch": ([_P, _P, _I, _I, _P], _I),

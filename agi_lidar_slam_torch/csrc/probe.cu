@@ -1,9 +1,13 @@
 // Probe kernels for Hopper (sm_90a): a toolchain probe and a row-gather probe.
 //
 // Replace the two TPU kernels of tools/pallas_probe.py:
-//   * scale2_kernel replaces `stage0`'s body `k` (o = 2 x): the smallest
-//     kernel that proves nvcc, the ctypes binding and a launch on PyTorch's
-//     stream. One grid-stride loop; bound by its bytes (read x, write o).
+//   * scale2 replaces `stage0`'s body `k` (o = 2 x): the smallest kernel
+//     that proves nvcc, the ctypes binding and a launch on PyTorch's stream.
+//     Bound by its bytes (read x, write o): one 16-byte float4 load and store
+//     per thread over the aligned body, the n % 4 tail by the first block's
+//     first threads (scale2_vec_kernel); a tensor that does not start 16-byte
+//     aligned takes one element per thread (scale2_kernel). Times against
+//     `x * 2` are in PERF.md beside the card's name and power limit.
 //   * row_gather_sum_kernel replaces `stage1`'s body `_dma_kernel`: the
 //     indexed gather of (B, 3) map rows that the octant-KNN kernel does for
 //     every query, reduced to a row sum so that the bytes must be read:
@@ -18,6 +22,7 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -26,8 +31,20 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 scale2_kernel(const float* __restrict__ x, float* __restrict__ o, int n) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) o[i] = 2.0f * x[i];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = 2.0f * x[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+scale2_vec_kernel(const float4* __restrict__ x4, float4* __restrict__ o4, int n4,
+                  const float* __restrict__ x, float* __restrict__ o, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n4) {
+    const float4 v = x4[i];
+    o4[i] = make_float4(2.0f * v.x, 2.0f * v.y, 2.0f * v.z, 2.0f * v.w);
+  }
+  const int t = 4 * n4 + i;  // the tail: i < n % 4 <= 3, all in block 0
+  if (i < 4 && t < n) o[t] = 2.0f * x[t];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -75,17 +92,29 @@ int grid_for(long long work_items, int items_per_block) {
   return (int)(g < 1 ? 1 : (g > 65535 ? 65535 : g));
 }
 
+int blocks_for(long long work_items) {  // one item per thread
+  return (int)((work_items + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each launch goes on `stream` (a cudaStream_t) and returns cudaGetLastError()
 // of the launch; arguments a kernel cannot take return cudaErrorInvalidValue.
+// scale2 takes n / 4 float4 items and an n % 4 tail when both pointers are
+// 16-byte aligned (and n >= 4), else one element per thread.
 int scale2_launch(const float* x, float* o, int n, int device, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  scale2_kernel<<<grid_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(x, o, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0;
+  if (aligned && n >= 4)
+    scale2_vec_kernel<<<blocks_for(n / 4), kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o), n / 4, x, o, n);
+  else
+    scale2_kernel<<<blocks_for(n), kThreads, 0, s>>>(x, o, n);
   return (int)cudaGetLastError();
 }
 

@@ -8,11 +8,24 @@ map row through the packed-key index (map/planar.build_ktab) over the probe
 window [h, h+probes), and the k nearest occupied sub-voxel points of those 8
 rows are selected, ties to the lower (octant, sub-voxel) index.
 
-What bounds it on the card: the L2/DRAM bytes of the eight gathered rows,
-about 6.6 KB per query at bucket 64. Both main-path tables fit the H100's
-50 MB L2, so the kernel reads rows straight from global memory, one warp per
-query, with neighbouring lanes on neighbouring points of a row (see the
-source note in csrc/octant_knn.cu).
+What bounds it on the card: by bytes, the distinct rows the live queries
+hit, read once from HBM (832 B each at bucket 64), 0.55 us at the LIO path's
+inputs; by the L2 gather rate, the hits' row bytes, 8x more. Measured, the
+kernel waits on chains of dependent steps and on instruction throughput, not on
+either. The association queries come out of the voxel downsample sorted by
+voxel key, so neighbouring queries hit the same rows: the kernel gives a CTA
+tiles of 8 consecutive queries, resolves all their probe windows at once,
+stages the tile's distinct rows in shared memory once when they fit, scores
+only each query's occupied sub-voxels and selects with a sorted per-lane list
+and k warp-wide REDUX rounds over the lane heads (see the source note in
+csrc/octant_knn.cu); the launcher there chooses the launch and the staged
+rows from the bucket.
+
+Device time per call on an NVIDIA H100 80GB HBM3 at 700.00 W, on the paths'
+own inputs (knn_bench.py): LIO (8192 queries, k = 8) 14.8 us, odometry surf
+(8192) 8.6 us and corner (2048) 7.1 us, against 27.9-29.6, 11.7 and 9.9-10.1
+us in the same run for the earlier design (one warp per query, rows read
+from L2); see PERF.md.
 
 `knn_octant_ref` is the plain PyTorch version of the same function. The CPU
 path and the tests use it; on a CUDA tensor `knn_octant` launches the kernel
@@ -30,8 +43,9 @@ from ..map.hash_map import (HashVoxelMap, _first_true, block_coords, hash_packed
 from ..map.planar import build_ktab
 from .knn import _BIG, _neighbor_blocks, _smallest_k
 
-MAX_K = 16  # the kernel's selection width
-MAX_BUCKET = 128  # the kernel's per-lane candidate registers
+MAX_K = 16  # neighbours per query the kernel selects
+MAX_BUCKET = 128  # sub-voxels per row the kernel takes
+ALIGN = 16  # bytes: the staged tensors are copied in 16-byte pieces
 
 launches = 0  # kernel launches made by knn_octant since the last reset
 
@@ -94,6 +108,8 @@ def _check_inputs(m, queries, qmask, k, cfg, ktab):
             raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in ("points", "occ") and t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must start {ALIGN}-byte aligned")
         if t.device != queries.device:
             raise ValueError(f"{name} is on {t.device}, queries on {queries.device}")
 

@@ -6,32 +6,51 @@
 Phases, each printing its own lines:
   1. device  — the card's name and power limit (nvidia-smi); TF32 off;
   2. build   — nvcc builds the port's kernels from agi_lidar_slam_torch/csrc,
-               one process per source;
-  3. kernel  — the octant-KNN kernel against its plain PyTorch version at the
-               odometry path's shapes (2048 queries / 8448-row corner table,
-               8192 / 16640-row surf table, k=5) and the LIO path's (8192
-               queries / 16640-row table of LioConfig().map, k=8), plus k=16,
-               a ragged N and an all-masked batch; device times from
-               torch.profiler, call times from CUDA events, and the bound from
-               the bytes the inputs need; a launch the kernel refuses must raise;
+               one process per source, with -Xptxas -v: each instance's
+               registers and spills are printed, and a spill fails the run;
+  3. kernel  — the octant-KNN kernel against its plain PyTorch version on
+               uniform queries over uniformly filled maps at the odometry
+               path's shapes (2048 queries / 8448-row corner table, 8192 /
+               16640-row surf table, k=5) and the LIO path's (8192 queries /
+               16640-row table of LioConfig().map, k=8), plus k=16, a ragged
+               N and an all-masked batch (the counts of tiles the kernel
+               stages and of tiles with more rows than it stages are
+               printed: both paths must run), exact ties, and maps of 27
+               and 125 sub-voxels a row (the kernel's other code paths,
+               checked, not timed);
+               device times from torch.profiler, call times from CUDA
+               events, and the bound from the bytes the inputs need; a
+               launch the kernel refuses must raise;
   4. probe   — the two probe kernels (scale2, row_gather_sum) against their
-               plain versions at the probe's defaults and at the association
-               table's size (65,536 gathered 768 B rows of a 16640-row table),
-               timed against the plain version and the library call; then the
-               probe's entry points (stage0, stage1) with the counts reset;
+               plain versions: scale2 at 256x128 and at 8192x4096 (larger
+               than L2), timed in turns with `x * 2`, and on a misaligned
+               view; row_gather_sum at the probe's
+               defaults and at the association table's size (65,536 gathered
+               768 B rows of a 16640-row table), timed against the plain
+               version and the library call; then the probe's entry points
+               (stage0, stage1) with the counts reset;
   5. main    — preset_aloam_kitti64 over HDL-64-scale (64x1800) scans made on
                the card by the port's simulator, through
                runtime.pipeline.process_scan: finite poses, the kernel
                launched 4 times per scan, healthy correspondence counts and
-               residuals, ATE against the simulator's ground truth, scans/s;
+               residuals, ATE against the simulator's ground truth, scans/s
+               (over the scans before the last, whose kernel calls are
+               captured for phase 9);
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
                bench.py's circle (radius 8 m, 0.25 rad/s, world seed 3), through
                runtime.lio_pipeline.process_lio_scan: finite state, the kernel
                launched once per scan plus once per re-probe, healthy matches
-               and residuals, ATE against the circle, scans/s, then stage
+               and residuals, ATE against the circle, scans/s (as in 5), then stage
                times, host syncs, launches and the busy share over more scans;
-  8. lio-cpu — the same LIO scans with CPU tensors, poses compared.
+  8. lio-cpu — the same LIO scans with CPU tensors, poses compared;
+  9. path    — the octant-KNN kernel on the path's own inputs: the arguments
+               of every call of the last odom scan and of the last LIO scan of
+               phases 5 and 7, captured there; each checked against the plain
+               version, timed (device, plain, call with the wrapper), with its
+               bound, its live queries, hits, distinct rows and rows read per
+               tile, and the L2 figure: the hits' row bytes over the
+               row-gather rate phase 4 measured.
 Then the kernels line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no last line. It needs a CUDA device and the repository
@@ -42,7 +61,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,11 +74,12 @@ import numpy as np
 import torch
 
 from agi_lidar_slam_torch import _build, preset_aloam_kitti64
+from agi_lidar_slam_torch.config import MapConfig
 from agi_lidar_slam_torch.estimators import ieskf
 from agi_lidar_slam_torch.eval.metrics import ate_rmse
 from agi_lidar_slam_torch.geometry import se3, so3
 from agi_lidar_slam_torch.imu.eskf import NavState
-from agi_lidar_slam_torch.map.hash_map import empty_map, insert
+from agi_lidar_slam_torch.map.hash_map import HashVoxelMap, empty_map, insert
 from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_torch.nn import octant_knn
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid
@@ -162,11 +185,93 @@ def knn_bound(m, queries, qmask, k, cfg, ktab) -> tuple[float, str]:
     return bound(n_bytes, 8.0 * int(rows.numel()) * B)
 
 
+def launch_shape(bucket: int) -> tuple[int, int, int]:
+    """The octant kernel's launch for rows of `bucket` sub-voxels, as its
+    launcher chooses it: (queries per tile, staged rows, shared-memory bytes
+    per CTA)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = _build.load().octant_knn_launch_shape(bucket, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"octant_knn_launch_shape({bucket}) failed: cudaError {err}")
+    return tuple(v.value for v in vals)
+
+
+def sharing(m, queries, qmask, cfg, ktab) -> dict:
+    """How the live queries' (query, octant) hits share map rows: live
+    queries, hits, distinct rows, the rows read by the kernel's tiles of
+    consecutive queries (each distinct row of a tile once), the most in one
+    tile, the tiles with hits whose rows the kernel stages, and those whose
+    distinct rows exceed the rows it stages: it stages none of those and
+    reads their rows from global memory."""
+    tile_q, stage_rows, _ = launch_shape(m.bucket)
+    qk, qh = octant_knn.octant_probe_keys(queries, cfg)
+    win = qh[..., None].long() + torch.arange(cfg.probes, device=qh.device)
+    match = (ktab[win] == qk[..., None]) & qmask[:, None, None]
+    row = torch.where(match, win, torch.full_like(win, -1)).amax(dim=-1)  # last match
+    hit = row >= 0
+    tile = (torch.arange(queries.shape[0], device=row.device) // tile_q)[:, None]
+    keys = torch.unique((tile * m.n_rows + row)[hit])
+    per_tile = torch.bincount(keys // m.n_rows)
+    return {"live": int(qmask.sum()), "hits": int(hit.sum()),
+            "distinct_rows": int(torch.unique(row[hit]).numel()),
+            "tile_rows": int(keys.numel()),
+            "max_tile_rows": int(per_tile.max()) if keys.numel() else 0,
+            "tiles_staged": int(((per_tile > 0) & (per_tile <= stage_rows)).sum()),
+            "tiles_over_stage_rows": int((per_tile > stage_rows).sum()),
+            "tile": tile_q, "stage_rows": stage_rows}
+
+
+@contextlib.contextmanager
+def captured_knn_calls(calls: list):
+    """While open, record a copy of the arguments of every
+    octant_knn.knn_octant call (map, queries, mask, k, config, ktab)."""
+    real = octant_knn.knn_octant
+
+    def wrapper(m, queries, qmask, k, cfg, ktab=None):
+        kt = build_ktab(m) if ktab is None else ktab
+        calls.append((HashVoxelMap(*(t.clone() for t in m)), queries.clone(), qmask.clone(), k,
+                      cfg, kt.clone()))
+        return real(m, queries, qmask, k, cfg, ktab=ktab)
+
+    octant_knn.knn_octant = wrapper
+    try:
+        yield calls
+    finally:
+        octant_knn.knn_octant = real
+
+
 def filled_map(cfg, n_points: int, rng: np.random.Generator, device):
     """A HashVoxelMap filled with uniform points around the origin."""
     pts = rng.uniform([-25, -25, -2], [25, 25, 5], (n_points, 3)).astype(np.float32)
     return insert(empty_map(cfg, device), torch.from_numpy(pts).to(device),
                   torch.ones(n_points, dtype=torch.bool, device=device), cfg)
+
+
+def ties_case(mcfg, device) -> None:
+    """Map points at sub-voxel centres and queries at sub-voxel corners: each
+    query has 8 nearest points at exactly the same f32 distance (and more
+    ties further out), so the order comes from the tie rule alone. The
+    kernel must equal the plain version exactly at k = 8 and k = 16."""
+    h = mcfg.sub_voxel
+    g = torch.arange(-8, 8, dtype=torch.float32, device=device)
+    pts = torch.stack(torch.meshgrid(g, g, g[6:10], indexing="ij"), dim=-1).reshape(-1, 3) * h
+    m = insert(empty_map(mcfg, device), pts + h / 2,
+               torch.ones(pts.shape[0], dtype=torch.bool, device=device), mcfg)
+    q = torch.stack(torch.meshgrid(g[3:-3], g[3:-3], g[7:9], indexing="ij"), dim=-1)
+    q = (q.reshape(-1, 3) * h).contiguous()
+    qm = torch.ones(q.shape[0], dtype=torch.bool, device=device)
+    ktab = build_ktab(m)
+    for k in (8, 16):
+        sq, p, valid = octant_knn.knn_octant(m, q, qm, k, mcfg, ktab=ktab)
+        rsq, rp, rvalid = octant_knn.knn_octant_ref(m, q, qm, k, mcfg, ktab=ktab)
+        torch.cuda.synchronize()
+        if not (torch.equal(valid, rvalid) and torch.equal(sq, rsq) and torch.equal(p, rp)):
+            raise AssertionError(f"ties k={k}: the kernel breaks ties unlike its plain version")
+        tied = int((sq[:, 1:] == sq[:, :-1])[valid[:, 1:]].sum())
+        log(f"kernel ties: {q.shape[0]} queries at sub-voxel corners, k={k}: {tied} tied "
+            f"neighbour pairs, valid[:,0]={float(valid[:, 0].float().mean()):.3f}, exact OK")
+        if tied == 0:
+            raise AssertionError("the ties case has no tied distances")
 
 
 def phase_kernel(device) -> dict:
@@ -180,13 +285,21 @@ def phase_kernel(device) -> dict:
                      cfg.features.max_surfs, 5),
             "lio": (lio_map, filled_map(lio_map, 80000, rng, device),
                     lio.LioConfig().max_scan_pts, lio.LioConfig().ieskf.cand_k)}
+    # the kernel's other code paths, checked but not timed: rows of 27
+    # sub-voxels (not a multiple of 16, so staged without cp.async) and of 125
+    # (the instance for rows of more than two sub-voxels a lane)
+    for block_sub in (3, 5):
+        mcfg = MapConfig(sub_voxel=0.5, block_sub=block_sub, log2_slots=13)
+        maps[f"bucket{mcfg.bucket}"] = (mcfg, filled_map(mcfg, 20000, rng, device), None, 5)
     max_err = 0.0
+    staged = over = 0  # tiles of all cases the kernel staged, and did not
     timing = {}
     for name, (mcfg, m, n_path, k_path) in maps.items():
         ktab = build_ktab(m)
         rows = m.n_rows
-        for n, k, masked in [(n_path, k_path, 0.2), (n_path, 16, 0.2), (1001, 5, 0.2),
-                             (n_path, k_path, 1.0)]:
+        cases = ([(n_path, k_path, 0.2), (n_path, 16, 0.2), (1001, 5, 0.2), (n_path, k_path, 1.0)]
+                 if n_path else [(1001, 5, 0.2), (1001, 16, 0.2)])
+        for n, k, masked in cases:
             q = torch.from_numpy(rng.uniform([-26, -26, -3], [26, 26, 6], (n, 3))
                                  .astype(np.float32)).to(device)
             qm = torch.from_numpy(rng.uniform(size=n) >= masked).to(device)
@@ -205,9 +318,16 @@ def phase_kernel(device) -> dict:
                 err = max(float((sq - rsq)[rvalid].abs().max()),
                           float((pts - rpts)[rvalid].abs().max()))
             max_err = max(max_err, err)
+            sh = sharing(m, q, qm, mcfg, ktab)
+            staged += sh["tiles_staged"]
+            over += sh["tiles_over_stage_rows"]
             log(f"kernel {name}: rows={rows} n={n} k={k} masked={masked:.0%} "
                 f"valid[:,0]={float(valid[:, 0].float().mean()):.3f} "
-                f"max_abs_err={err:.3g} OK")
+                f"max_abs_err={err:.3g} OK; tiles of {sh['tile']} queries: "
+                f"{sh['tiles_staged']} staged, {sh['tiles_over_stage_rows']} with more rows "
+                f"than the {sh['stage_rows']} it stages (most in a tile {sh['max_tile_rows']})")
+        if n_path is None:
+            continue
         q = torch.from_numpy(rng.uniform([-26, -26, -3], [26, 26, 6], (n_path, 3))
                              .astype(np.float32)).to(device)
         qm = torch.from_numpy(rng.uniform(size=n_path) >= 0.2).to(device)
@@ -230,7 +350,12 @@ def phase_kernel(device) -> dict:
             f"time kernel {dev_ms} ms, plain {plain_dev_ms} ms (torch.profiler, mean of 20 "
             f"calls; None: not measured); bound {bound_ms:.5f} ms ({bound_by})")
 
-    # a launch the kernel refuses (k above its selection width) must raise
+    log(f"kernel: {staged} tiles staged, {over} read from global memory, all exact")
+    if staged == 0 or over == 0:
+        raise AssertionError("the synthetic cases did not run both the staged and the "
+                             "unstaged tiles")
+    ties_case(lio_map, device)
+    # a launch the kernel refuses (k above MAX_K) must raise
     m = maps["corner"][1]
     try:
         octant_knn._launch(m, torch.zeros((8, 3), device=device),
@@ -246,20 +371,34 @@ def phase_kernel(device) -> dict:
 def phase_probe(device) -> dict:
     """The probe kernels against their plain versions and the library calls,
     then the probe's entry points with the launch counts reset."""
-    out = {}
-    x = torch.from_numpy(np.random.default_rng(SEED).normal(size=(256, 128))
-                         .astype(np.float32)).to(device)
-    o = probe.scale2(x)
-    torch.cuda.synchronize()
-    if not torch.equal(o, probe.scale2_ref(x)):
-        raise AssertionError("scale2 disagrees with its plain version")
-    nb = 2 * x.numel() * 4
-    b_ms, b_by = bound(nb, x.numel())
-    out["scale2"] = {"256x128": {
-        "ms": device_ms(lambda: probe.scale2(x)), "plain_ms": device_ms(lambda: probe.scale2_ref(x)),
-        "library_ms": device_ms(lambda: x * 2), "call_ms": probe.chained_ms(lambda: probe.scale2(x)),
-        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}}
-    log(f"probe scale2 256x128: exact; {out['scale2']['256x128']}")
+    out = {"scale2": {}}
+    gen = torch.Generator(device).manual_seed(SEED)
+    for shape in [(256, 128), (8192, 4096)]:  # the probe's shape; 128 MB, larger than L2
+        x = torch.randn(shape, generator=gen, device=device)
+        label = f"{shape[0]}x{shape[1]}"
+        o = probe.scale2(x)
+        torch.cuda.synchronize()
+        if not torch.equal(o, probe.scale2_ref(x)):
+            raise AssertionError(f"scale2 {label} disagrees with its plain version")
+        b_ms, b_by = bound(2 * x.numel() * 4, x.numel())
+        # the kernel and the library call in turns (kernel, library, library,
+        # kernel, ...), each the mean of its three device times
+        turns = {"ms": [], "library_ms": []}
+        for who in ("ms", "library_ms", "library_ms", "ms", "ms", "library_ms"):
+            turns[who].append(device_ms(lambda: probe.scale2(x)) if who == "ms"
+                              else device_ms(lambda: x * 2))
+        rec = {key: (sum(v) / len(v) if None not in v else None) for key, v in turns.items()}
+        rec.update({"turns": turns, "plain_ms": device_ms(lambda: probe.scale2_ref(x)),
+                    "call_ms": probe.chained_ms(lambda: probe.scale2(x)),
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0})
+        rec["share_of_bound"] = b_ms / rec["ms"] if rec["ms"] else None
+        out["scale2"][label] = rec
+        log(f"probe scale2 {label}: exact; {rec}")
+    tail = x.reshape(-1)[1:1003]  # 4 bytes past a 16-byte boundary: one element per thread
+    if not torch.equal(probe.scale2(tail), probe.scale2_ref(tail)):
+        raise AssertionError("scale2 on a misaligned view disagrees with its plain version")
+    del x, o
+    log("probe scale2: a misaligned 1002-element view is exact")
 
     out["row_gather_sum"] = {}
     for label, (C, B, rows, tiles) in {"probe_defaults": (64, 64, 4096, 8),
@@ -289,6 +428,7 @@ def phase_probe(device) -> dict:
         log(f"probe row_gather_sum {label} (C={C} B={B} rows={rows} tiles={tiles}): "
             f"max rel err {rel:.3g}; {rec}")
 
+    torch.cuda.empty_cache()
     probe.launches.update(scale2=0, row_gather_sum=0)
     s0 = probe.stage0(device)
     s1 = probe.stage1(device=device)
@@ -345,18 +485,20 @@ def phase_main(device) -> dict:
     scans, gt = make_scans(device)
     state = moving_start(cfg, device)
     torch.cuda.synchronize()
-    results, marks = [], [torch.cuda.Event(enable_timing=True)]
+    results, marks, calls = [], [torch.cuda.Event(enable_timing=True)], []
     octant_knn.launches = 0
     marks[0].record()
-    for s in scans:
-        state, res = process_scan(state, s, cfg)
+    for i, s in enumerate(scans):
+        with (captured_knn_calls(calls) if i == N_SCANS - 1 else contextlib.nullcontext()):
+            state, res = process_scan(state, s, cfg)
         marks.append(torch.cuda.Event(enable_timing=True))
         marks[-1].record()
         torch.cuda.synchronize()
         results.append(res)
     launches = octant_knn.launches
     first_ms = marks[0].elapsed_time(marks[1])
-    steady = (N_SCANS - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-1])
+    # the last scan copies its kernel calls' arguments: outside the window
+    steady = (N_SCANS - 1 - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-2])
 
     if launches != 4 * N_SCANS:
         raise AssertionError(f"octant KNN launched {launches} times, expected {4 * N_SCANS}")
@@ -378,9 +520,9 @@ def phase_main(device) -> dict:
     if not ate < ATE_BOUND:
         raise AssertionError(f"ATE {ate:.4f} m above the bound {ATE_BOUND} m")
     log(f"main: first scan {first_ms:.1f} ms; steady {steady:.2f} scans/s over "
-        f"scans {N_WARM}..{N_SCANS - 1} (CUDA events between synchronized scans)")
+        f"scans {N_WARM}..{N_SCANS - 2} (CUDA events between synchronized scans)")
     return {"launches": launches, "scans": scans, "gt": gt, "results": results, "ate": ate,
-            "scans_per_s": steady}
+            "scans_per_s": steady, "calls": calls}
 
 
 def phase_cpu(main: dict) -> None:
@@ -471,11 +613,13 @@ def phase_lio(device) -> dict:
     state = lio_start(cfg, device)
     torch.cuda.synchronize()
     results, per_scan, marks = [], [], [torch.cuda.Event(enable_timing=True)]
+    knn_calls = []
     octant_knn.launches = 0
     marks[0].record()
-    for pts, tt, m, win in items[:N_SCANS]:
+    for i, (pts, tt, m, win) in enumerate(items[:N_SCANS]):
         before = octant_knn.launches
-        state, res = lio.process_lio_scan(state, pts, tt, m, win, cfg)
+        with (captured_knn_calls(knn_calls) if i == N_SCANS - 1 else contextlib.nullcontext()):
+            state, res = lio.process_lio_scan(state, pts, tt, m, win, cfg)
         marks.append(torch.cuda.Event(enable_timing=True))
         marks[-1].record()
         torch.cuda.synchronize()
@@ -485,7 +629,8 @@ def phase_lio(device) -> dict:
             raise AssertionError(f"non-finite LIO state after scan {len(results) - 1}")
     launches = octant_knn.launches
     first_ms = marks[0].elapsed_time(marks[1])
-    steady = (N_SCANS - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-1])
+    # the last scan copies its kernel calls' arguments: outside the window
+    steady = (N_SCANS - 1 - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-2])
     reprobes = sum(n - 1 for n in per_scan)
     log(f"lio: {N_SCANS} scans {RINGS}x{WIDTH} ({items[0][0].shape[0]} points/scan, "
         f"{int(items[0][2].sum())} returns) octant_knn launches={launches} per scan "
@@ -504,7 +649,7 @@ def phase_lio(device) -> dict:
         raise AssertionError(f"LIO residual rms too high: {rms}")
     ate = ate_rmse(est, gt[:N_SCANS], align=False)
     log(f"lio: ATE={ate:.4f} m (bound {LIO_ATE_BOUND:.4f}); first scan {first_ms:.1f} ms; "
-        f"steady {steady:.2f} scans/s over scans {N_WARM}..{N_SCANS - 1} (CUDA events "
+        f"steady {steady:.2f} scans/s over scans {N_WARM}..{N_SCANS - 2} (CUDA events "
         f"between synchronized scans)")
     if not ate < LIO_ATE_BOUND:
         raise AssertionError(f"LIO ATE {ate:.4f} m above the bound {LIO_ATE_BOUND:.4f} m")
@@ -565,8 +710,9 @@ def phase_lio(device) -> dict:
         f"{k} {v:.2f} ({calls[k]:g})" for k, v in stage_ms.items()))
     return {"launches": launches, "items": items[:N_SCANS], "gt": gt[:N_SCANS],
             "results": results, "ate": ate, "scans_per_s": steady, "first_ms": first_ms,
-            "syncs": syncs, "sync_sites": dict(sync_sites), "busy": busy, "launches_per_scan": n_launch / LIO_PROFILE_SCANS,
-            "stage_ms": stage_ms}
+            "syncs": syncs, "sync_sites": dict(sync_sites), "busy": busy,
+            "launches_per_scan": n_launch / LIO_PROFILE_SCANS, "stage_ms": stage_ms,
+            "calls": knn_calls}
 
 
 def phase_lio_cpu(run: dict) -> None:
@@ -588,7 +734,48 @@ def phase_lio_cpu(run: dict) -> None:
         raise AssertionError("card and CPU LIO poses disagree")
 
 
-def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict) -> dict:
+def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
+    """The octant-KNN kernel on the arguments captured from the paths' own
+    calls: exactness, device and call times against the plain version, the
+    bound, the sharing counts and the L2 figure (the hits' row bytes, points
+    and occupancy, over the row-gather rate measured in this run)."""
+    out = {}
+    for path, calls in runs.items():
+        if not calls:
+            raise AssertionError(f"no octant KNN call was captured on the {path} path")
+        for j, (m, q, qm, k, mcfg, ktab) in enumerate(calls):
+            label = f"{path}#{j}:{q.shape[0]}x{m.n_rows}xk{k}"
+
+            def kern_call():
+                return octant_knn.knn_octant(m, q, qm, k, mcfg, ktab=ktab)
+
+            def plain_call():
+                return octant_knn.knn_octant_ref(m, q, qm, k, mcfg, ktab=ktab)
+
+            (sq, pts, valid), (rsq, rpts, rvalid) = kern_call(), plain_call()
+            torch.cuda.synchronize()
+            if not torch.equal(valid, rvalid):
+                raise AssertionError(f"path input {label}: valid differs in "
+                                     f"{int((valid != rvalid).sum())} entries")
+            torch.testing.assert_close(sq, rsq, rtol=SQ_TOL, atol=SQ_TOL)
+            torch.testing.assert_close(pts, rpts, rtol=PTS_TOL, atol=PTS_TOL)
+            err = 0.0
+            if bool(rvalid.any()):
+                err = max(float((sq - rsq)[rvalid].abs().max()),
+                          float((pts - rpts)[rvalid].abs().max()))
+            sh = sharing(m, q, qm, mcfg, ktab)
+            bound_ms, bound_by = knn_bound(m, q, qm, k, mcfg, ktab)
+            rec = {"queries": q.shape[0], "rows": m.n_rows, "k": k, "max_abs_err": err,
+                   "device_ms": device_ms(kern_call), "plain_device_ms": device_ms(plain_call),
+                   "call_ms": cuda_ms(kern_call), "bound_ms": bound_ms, "bound_by": bound_by,
+                   "l2_ms": sh["hits"] * m.bucket * 13 / (gather_gb_per_s * 1e6), **sh}
+            rec["sharing"] = sh["hits"] / sh["tile_rows"] if sh["tile_rows"] else None
+            out[label] = rec
+            log(f"path {label}: max_abs_err={err:.3g} OK; {rec}")
+    return out
+
+
+def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, path: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -598,23 +785,27 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict) -> dict:
 
     g = prb["row_gather_sum"]
     s = prb["scale2"]["256x128"]
+    path_keys = ("device_ms", "plain_device_ms", "call_ms", "bound_ms", "l2_ms", "live",
+                 "hits", "distinct_rows", "tile_rows", "max_abs_err")
     return {"kernels": [
         {"name": "octant_knn", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/octant_knn.cu",
          "replaces": "agi_lidar_slam_tpu/nn/vmem_knn.py:150",
          "launches": main_run["launches"] + lio_run["launches"],
          "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"]},
-         "max_abs_err": kern["max_abs_err"], "ms": t["lio"]["device_ms"],
+         "max_abs_err": max(kern["max_abs_err"], *(v["max_abs_err"] for v in path.values())),
+         "ms": t["lio"]["device_ms"],
          "plain_ms": t["lio"]["plain_device_ms"], "bound_ms": t["lio"]["bound_ms"],
          "bound_by": t["lio"]["bound_by"], "library_ms": None,
          **{f"{key}_by_shape": by_shape(key) for key in (
              "device_ms", "plain_device_ms", "call_ms", "plain_call_ms", "bound_ms")},
+         "path_inputs": {name: {key: v[key] for key in path_keys} for name, v in path.items()},
          "odom_scans_per_s": main_run["scans_per_s"], "odom_ate_m": main_run["ate"],
          "lio_scans_per_s": lio_run["scans_per_s"], "lio_ate_m": lio_run["ate"]},
         {"name": "scale2", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:29", "launches": prb["launches"]["scale2"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-         "call_ms": s["call_ms"]},
+         "call_ms": s["call_ms"], "by_shape": prb["scale2"]},
         {"name": "row_gather_sum", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:68", "launches": prb["launches"]["row_gather_sum"],
          "max_abs_err": max(v["max_abs_err"] for v in g.values()),
@@ -640,18 +831,41 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
+    ptxas = io.StringIO()
+    with contextlib.redirect_stdout(ptxas):  # nvcc -Xptxas -v: registers and spills
+        lib = _build.build(verbose=True)
     _build.load()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas.getvalue()
+    print(ptxas, end="", flush=True)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", ptxas)]
+    if any(spills):
+        raise AssertionError(f"a kernel instance spills registers: {spills}")
+    tile, stage_rows, smem = launch_shape(64)
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s; "
+        f"{len(spills) or 'no'} kernel instances compiled here, none spills; octant_knn at "
+        f"bucket 64: tiles of {tile} queries, {stage_rows} staged rows, {smem} B of dynamic "
+        f"shared memory per CTA")
 
-    kern = phase_kernel(device)
-    prb = phase_probe(device)
-    main_run = phase_main(device)
-    phase_cpu(main_run)
-    lio_run = phase_lio(device)
-    phase_lio_cpu(lio_run)
+    seconds = {"build": time.perf_counter() - t0}
 
-    print(json.dumps(kernels_line(kern, prb, main_run, lio_run)), flush=True)
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    kern = timed("kernel", phase_kernel, device)
+    prb = timed("probe", phase_probe, device)
+    main_run = timed("main", phase_main, device)
+    timed("cpu", phase_cpu, main_run)
+    lio_run = timed("lio", phase_lio, device)
+    timed("lio-cpu", phase_lio_cpu, lio_run)
+    path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"]},
+                 prb["row_gather_sum"]["map_table"]["GB_per_s"])
+    log("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.1f}")
+
+    print(json.dumps(kernels_line(kern, prb, main_run, lio_run, path)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

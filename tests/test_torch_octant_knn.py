@@ -147,6 +147,31 @@ def test_wrapper_rejects_bad_inputs():
         octant_knn.knn_octant(meta, q.to("meta"), qm.to("meta"), 5, tcfg)
 
 
+@pytest.mark.parametrize("case", ["bucket216", "points", "occ"])
+def test_wrapper_refuses_wide_buckets_and_misaligned_tables(case):
+    """A bucket above 128, and a points or occupancy table that does not
+    start 16-byte aligned (the kernel copies rows in 16-byte pieces), raise
+    on every device rather than fall back."""
+    q, qm = torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool)
+    if case == "bucket216":
+        wide = port_cfg(MapConfig(sub_voxel=0.5, block_sub=6, log2_slots=6, probes=8,
+                                  neighborhood="octant8"))
+        with pytest.raises(ValueError, match="buckets up to 128"):
+            octant_knn.knn_octant(thm.empty_map(wide, "cpu"), q, qm, 5, wide)
+        return
+    tcfg = port_cfg(CFG)
+    tm = thm.empty_map(tcfg, "cpu")
+    rows, B = tm.occ.shape
+    if case == "points":  # 4 bytes past the allocation
+        m = tm._replace(points=torch.zeros(rows * B * 3 + 1)[1:].view(rows, B, 3))
+    else:
+        m = tm._replace(occ=torch.zeros(rows * B + 1, dtype=torch.bool)[1:].view(rows, B))
+    t = getattr(m, case)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    with pytest.raises(ValueError, match=f"{case} must start 16-byte aligned"):
+        octant_knn.knn_octant(m, q, qm, 5, tcfg)
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     """A missing toolchain is an error, never a fallback to the plain path."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)

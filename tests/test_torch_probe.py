@@ -110,6 +110,18 @@ def test_wrappers_reject_bad_inputs():
         probe.row_gather_sum(idx.to("meta"), src.to("meta"))
 
 
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1003, 32768])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_scale2_tail_and_misaligned_view(n, offset):
+    """Every length (a float4 body with a tail of n % 4 on the card) and a
+    view 4 bytes past its allocation (not 16-byte aligned: one element a
+    thread on the card) give exactly 2 x."""
+    x = torch.from_numpy(np.random.default_rng(n).normal(size=n + offset).astype(np.float32))
+    v = x[offset:]
+    assert v.is_contiguous() and bool(v.data_ptr() % 16) == bool(offset)
+    assert torch.equal(probe.scale2(v), v * 2)
+
+
 def test_cli_needs_a_card(capsys):
     assert probe.main(["stage9"]) == 2
     if not torch.cuda.is_available():
