@@ -36,8 +36,8 @@ _SIGNATURES = {
     "octant_knn_error_string": ([_I], ctypes.c_char_p),
     # x, o, n, device, stream
     "scale2_launch": ([_P, _P, _I, _I, _P], _I),
-    # idx, src, out, n, rows, bucket, device, stream
-    "row_gather_sum_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # idx, src, out, n, rows, bucket, tag, sums, epoch, device, stream
+    "row_gather_sum_launch": ([_P, _P, _P, _I, _I, _I, _P, _P, ctypes.c_uint, _I, _P], _I),
     # driver version out, runtime version out
     "probe_versions": ([ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     "probe_error_string": ([_I], ctypes.c_char_p),

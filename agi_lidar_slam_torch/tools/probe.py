@@ -22,6 +22,7 @@ import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -85,8 +86,38 @@ def scale2(x: torch.Tensor) -> torch.Tensor:
     return o
 
 
+# The card claims rows (each distinct row read once) only where claims were
+# measured to pay (chip_smoke.py's claims sweep, PERF.md): more indices than
+# rows and at least this many bytes of gathered rows, so that the re-reads
+# saved outweigh the atomics and the waits. The kernel reads rows of 64
+# sub-voxels on a 16-byte aligned table with 16-byte loads, others with
+# 4-byte loads, which gather more slowly, so claims pay sooner there.
+CLAIM_MIN_BYTES = {"16-byte": 32 * 2**20, "4-byte": 8 * 2**20}
+
+
+def claims_pay(n: int, rows: int, bucket: int, aligned: bool, capturing: bool) -> bool:
+    """Whether a gather of n indices into a (rows, bucket, 3) table (16-byte
+    aligned or not) claims rows. Never under CUDA graph capture: the epoch is
+    a launch argument, so a replay would find the captured launch's tags and
+    read its sums."""
+    loads = "16-byte" if bucket == 64 and aligned else "4-byte"
+    return not capturing and n > rows and n * bucket * 12 >= CLAIM_MIN_BYTES[loads]
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def row_gather_sum(idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """(n,3) row sums of the gathered (B,3) rows src[idx]."""
+    """(n,3) row sums of the gathered (B,3) rows src[idx]. On the card each
+    distinct row is read once where `claims_pay`, else every index reads its
+    row."""
+    claims = src.dim() == 3 and claims_pay(idx.shape[0], src.shape[0], src.shape[1],
+                                           src.data_ptr() % 16 == 0, _capturing(idx))
+    return _row_gather(idx, src, claims)
+
+
+def _row_gather(idx: torch.Tensor, src: torch.Tensor, claims: bool) -> torch.Tensor:
     _check("idx", idx, torch.int32, idx.device)
     _check("src", src, torch.float32, idx.device)
     if idx.dim() != 1 or src.dim() != 3 or src.shape[2] != 3 or src.shape[0] == 0:
@@ -94,6 +125,8 @@ def row_gather_sum(idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
                          f"and {tuple(src.shape)}")
     if src.numel() >= 2**31:
         raise ValueError(f"row_gather_sum takes src below 2**31 elements, got {src.numel()}")
+    if claims and _capturing(idx):
+        raise RuntimeError("row_gather_sum cannot claim rows under CUDA graph capture")
     if idx.device.type == "cpu":
         return row_gather_sum_ref(idx, src)
     if idx.device.type != "cuda":
@@ -102,12 +135,44 @@ def row_gather_sum(idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, 3), dtype=torch.float32, device=idx.device)
     if n == 0:
         return out
+    device, stream = _device_args(idx)
+    tag = sums = None
+    epoch = 0
+    if claims:
+        tag, sums, epoch = gather_scratch((device, stream), src.shape[0], idx.device)
     lib = _build.load()
-    _raise_on(lib.row_gather_sum_launch(idx.data_ptr(), src.data_ptr(), out.data_ptr(), n,
-                                        src.shape[0], src.shape[1], *_device_args(idx)),
-              "row_gather_sum", lib)
+    _raise_on(lib.row_gather_sum_launch(
+        idx.data_ptr(), src.data_ptr(), out.data_ptr(), n, src.shape[0], src.shape[1],
+        tag.data_ptr() if claims else None, sums.data_ptr() if claims else None, epoch,
+        device, stream), "row_gather_sum", lib)
     launches["row_gather_sum"] += 1
     return out
+
+
+# the row gather's scratch for each (device, stream): a claim tag (int32) and
+# (x, y, z, epoch stamp) per row, and the epoch of the last launch. Launches
+# on one stream run in turn; scratch shared by two streams would let one
+# launch's epoch overtake the other's claims.
+_scratch: dict = {}
+EPOCH_LIMIT = 2**31 - 1  # the launcher takes epochs in [1, 2**31 - 1)
+
+
+def gather_scratch(key, rows: int, device):
+    """(tag, sums, epoch) for the next row-gather launch on `key`: scratch of
+    at least `rows` rows, grown by doubling (zeroed when new), and the epoch
+    advanced; at EPOCH_LIMIT the tags and stamps are zeroed on the stream and
+    the epoch starts again at 1."""
+    s = _scratch.get(key)
+    if s is None or s[0].numel() < rows:
+        cap = max(rows, 2 * s[0].numel() if s is not None else 0)
+        s = _scratch[key] = [torch.zeros(cap, dtype=torch.int32, device=device),
+                             torch.zeros((cap, 4), dtype=torch.float32, device=device), 0]
+    s[2] += 1
+    if s[2] >= EPOCH_LIMIT:
+        s[0].zero_()
+        s[1].zero_()
+        s[2] = 1
+    return s[0], s[1], s[2]
 
 
 def probe_inputs(C: int = 64, B: int = 64, rows: int = 4096, tiles: int = 8, device=None):
@@ -117,6 +182,31 @@ def probe_inputs(C: int = 64, B: int = 64, rows: int = 4096, tiles: int = 8, dev
     src = torch.arange(rows * B * 3, dtype=torch.float32, device=device).reshape(rows, B, 3)
     idx = ((torch.arange(tiles * C, dtype=torch.int64, device=device) * 97) % rows).to(torch.int32)
     return src, idx
+
+
+def distinct_inputs(B: int = 64, rows: int = 16640, seed: int = 0, device=None):
+    """The probe's table (`probe_inputs`) and a permutation of its rows made
+    from `seed`: each row gathered once."""
+    src, _ = probe_inputs(1, B, rows, 1, device)
+    perm = np.random.default_rng(seed).permutation(rows).astype(np.int32)
+    return src, torch.from_numpy(perm).to(src.device)
+
+
+def one_row_inputs(n: int = 65536, B: int = 64, rows: int = 16640, seed: int = 0, device=None):
+    """The probe's table and `n` copies of one row chosen from `seed`."""
+    src, _ = probe_inputs(1, B, rows, 1, device)
+    row = int(np.random.default_rng(seed).integers(rows))
+    return src, torch.full((n,), row, dtype=torch.int32, device=src.device)
+
+
+def bucket_inputs(B: int, rows: int, n: int, seed: int = 0, device=None):
+    """A (rows, B, 3) table of whole numbers in [1, 1024], so every row sum is
+    exact in f32, and `n` indices in [-4, rows + 4): some outside the table."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, 1025, (rows, B, 3)).astype(np.float32)
+    idx = rng.integers(-4, rows + 4, n).astype(np.int32)
+    device = default_device(device)
+    return torch.from_numpy(src).to(device), torch.from_numpy(idx).to(device)
 
 
 def chained_ms(fn, n: int = N_CHAINED) -> float:
@@ -134,9 +224,10 @@ def chained_ms(fn, n: int = N_CHAINED) -> float:
 
 
 def gather_bytes(idx: torch.Tensor, src: torch.Tensor) -> int:
-    """Bytes a row gather-sum must move: each distinct row read once, the
-    indices read, the sums written."""
-    distinct = int(torch.unique(idx).numel())
+    """Bytes a row gather-sum must move: each distinct row in the table read
+    once, the indices read, the sums written."""
+    inside = idx[(idx >= 0) & (idx < src.shape[0])].long()
+    distinct = int((torch.bincount(inside, minlength=src.shape[0]) > 0).sum())
     return distinct * src.shape[1] * 3 * 4 + idx.numel() * 4 + idx.numel() * 3 * 4
 
 

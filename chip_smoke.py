@@ -25,10 +25,18 @@ Phases, each printing its own lines:
                plain versions: scale2 at 256x128 and at 8192x4096 (larger
                than L2), timed in turns with `x * 2`, and on a misaligned
                view; row_gather_sum at the probe's
-               defaults and at the association table's size (65,536 gathered
-               768 B rows of a 16640-row table), timed against the plain
-               version and the library call; then the probe's entry points
-               (stage0, stage1) with the counts reset;
+               defaults, at the association table's size (65,536 gathered
+               768 B rows of a 16640-row table), on each row once, on 65,536
+               copies of one row, on rows of 27 and 125 sub-voxels with
+               indices outside the table, on a misaligned table, each timed
+               against the plain version and the library call (and, where
+               there are more indices than rows, with claims forced on and
+               off), with its bound at the HBM rate and at the fastest L2
+               gather rate measured here; claims on and off over a sweep of
+               table sizes; on two streams at once, across the claim
+               epoch's wrap and replayed in a CUDA graph, each alternating
+               between two tables; then the probe's entry points (stage0,
+               stage1) with the counts reset;
   5. main    — preset_aloam_kitti64 over HDL-64-scale (64x1800) scans made on
                the card by the port's simulator, through
                runtime.pipeline.process_scan: finite poses, the kernel
@@ -50,7 +58,7 @@ Phases, each printing its own lines:
                version, timed (device, plain, call with the wrapper), with its
                bound, its live queries, hits, distinct rows and rows read per
                tile, and the L2 figure: the hits' row bytes over the
-               row-gather rate phase 4 measured.
+               row-gather rate phase 4 measured with each row read once.
 Then the kernels line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no last line. It needs a CUDA device and the repository
@@ -111,8 +119,11 @@ LIO_PROFILE_SCANS = 4  # steady scans under torch.profiler / sync counting / sta
 # kernel vs plain version: the tolerances of tests/test_vmem_knn.py (one ulp
 # of distance evaluation order; points are copied, so exact in practice)
 SQ_TOL, PTS_TOL = 3e-6, 1e-5
-# row_gather_sum vs its plain version: all terms positive, so two f32
-# summation orders of B=64 terms differ by at most 2 (log2 B + 2) 2**-24
+# row_gather_sum vs its plain version: on the probe's tables (B=64, all terms
+# positive) two f32 summation orders of the 64 terms differ by at most
+# 2 (log2 B + 2) 2**-24 for tree-like orders (the kernel's: 4 terms a lane in
+# turn, then a 4-level tree); the tables of 27 and 125 sub-voxels hold whole
+# numbers with sums exact in f32, so there any error is a fault
 GATHER_RTOL = 1e-6
 # card vs CPU poses over the run (f32 reductions in another order)
 POSE_T_TOL, POSE_Q_TOL = 1e-3, 1e-3
@@ -368,6 +379,218 @@ def phase_kernel(device) -> dict:
     return {"max_abs_err": max_err, "timing": timing}
 
 
+def gather_err(label: str, got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs, max relative error) of the kernel's row sums against the
+    plain version's; NaN must stand in the same places, and the relative
+    error must be within GATHER_RTOL."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"row_gather_sum {label}: NaN in other places than the plain "
+                             f"version ({int((torch.isnan(got) != nan).sum())} entries)")
+    d = (got - ref)[~nan].abs()
+    rel = float((d / ref[~nan].abs()).max()) if d.numel() else 0.0
+    if not rel <= GATHER_RTOL:
+        raise AssertionError(f"row_gather_sum {label}: relative error {rel} > {GATHER_RTOL}")
+    return (float(d.max()) if d.numel() else 0.0), rel
+
+
+def gather_inputs(device) -> dict:
+    """name: (src, idx) of each row-gather case: the probe's defaults; the
+    association table's size (65,536 indices into 16,640 rows of 768 B, each
+    row about 3.9 times); each row once (a permutation: the L2 gather rate);
+    65,536 copies of one row (the most contended claim); rows of 27 and 125
+    sub-voxels with indices outside the table (4-byte loads, with and without
+    claims); the association table's case on a table 4 bytes past a 16-byte
+    boundary."""
+    cases = {"probe_defaults": probe.probe_inputs(64, 64, 4096, 8, device),
+             "map_table": probe.probe_inputs(64, 64, 16640, 1024, device),
+             "distinct": probe.distinct_inputs(seed=SEED, device=device),
+             "one_row": probe.one_row_inputs(seed=SEED, device=device),
+             "bucket27": probe.bucket_inputs(27, 2000, 8192, seed=SEED, device=device),
+             "bucket125": probe.bucket_inputs(125, 4000, 2000, seed=SEED + 1, device=device)}
+    src, idx = cases["map_table"]
+    base = torch.empty(src.numel() + 1, device=device)
+    view = base[1:].view(src.shape)
+    view.copy_(src)
+    if view.data_ptr() % 16 != 4:
+        raise AssertionError("the misaligned case's table is not 4 bytes past a boundary")
+    cases["misaligned"] = (view, idx)
+    return cases
+
+
+def gather_cases(device) -> dict:
+    """row_gather_sum on each case of gather_inputs against its plain version
+    (held at GATHER_RTOL, NaN in the same places), with device times of the
+    kernel, the plain version and, where every index is in the table, the
+    library call `src[idx].sum(1)`; where there are more indices than rows
+    also the kernel with claims forced on and off, whichever the wrapper
+    takes. Two bounds: `bound_ms`, the bytes over the HBM rate (a first
+    touch), and `l2_bound_ms`, the bytes over the faster of two gathers
+    without claims measured here, `distinct` and `map_table` (rows far apart,
+    so served by L2, where every case's table stays between the timed calls;
+    a measured rate, so a lower bound on the L2's; `one_row`'s copies come
+    from L1 and are left out)."""
+    out = {}
+    for label, (src, idx) in gather_inputs(device).items():
+        n, rows, B = idx.shape[0], src.shape[0], src.shape[1]
+        got, ref = probe.row_gather_sum(idx, src), probe.row_gather_sum_ref(idx, src)
+        max_abs, rel = gather_err(label, got, ref)
+        ok = (idx >= 0) & (idx < rows)
+        in_table = bool(ok.all())
+        nb = probe.gather_bytes(idx, src)
+        b_ms, b_by = bound(nb, n * B * 3)
+        rec = {"gathered_rows": n, "rows": rows, "B": B,
+               "distinct_rows": int(torch.unique(idx[ok]).numel()),
+               "claims": probe.claims_pay(n, rows, B, src.data_ptr() % 16 == 0, False),
+               "table_MB": rows * B * 12 / 1e6, "gathered_MB": n * B * 12 / 1e6,
+               "bound_bytes": nb, "max_abs_err": max_abs, "max_rel_err": rel,
+               "ms": device_ms(lambda: probe.row_gather_sum(idx, src)),
+               "plain_ms": device_ms(lambda: probe.row_gather_sum_ref(idx, src)),
+               "library_ms": (device_ms(lambda: src[idx.long()].sum(1)) if in_table else None),
+               "call_ms": probe.chained_ms(lambda: probe.row_gather_sum(idx, src)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rec["no_claims_ms"] = rec["ms"]
+        if n > rows:
+            for mode in (True, False):
+                gather_err(f"{label} (claims {mode})", probe._row_gather(idx, src, mode), ref)
+                rec[f"{'' if mode else 'no_'}claims_ms"] = device_ms(
+                    lambda: probe._row_gather(idx, src, mode))
+        for key in ("ms", "plain_ms", "library_ms", "no_claims_ms"):
+            if rec.get(key) is not None:
+                rec[key[:-2] + "GB_per_s"] = n * B * 12 / (rec[key] * 1e6)
+        rec["share_of_bound"] = b_ms / rec["ms"] if rec["ms"] else None
+        rec["ns_per_row"] = rec["ms"] * 1e6 / n if rec["ms"] else None
+        out[label] = rec
+        log(f"probe row_gather_sum {label} (n={n} rows={rows} B={B}): max rel err {rel:.3g}, "
+            f"NaN in place; {rec}")
+    l2_gbs, l2_case = max((out[label]["no_claims_GB_per_s"], label)
+                          for label in ("map_table", "distinct"))
+    for r in out.values():
+        r["l2_bound_ms"] = r["bound_bytes"] / (l2_gbs * 1e6)
+        r["share_of_l2_bound"] = r["l2_bound_ms"] / r["ms"] if r["ms"] else None
+    log(f"probe row_gather_sum: L2 gather rate {l2_gbs:.1f} GB/s (the {l2_case} case without "
+        "claims); shares of the L2 bound " + ", ".join(
+            f"{label} {r['share_of_l2_bound']:.3f}" for label, r in out.items()
+            if r["share_of_l2_bound"]))
+    for label in ("probe_defaults", "one_row"):  # the kernel must beat the library call
+        r = out[label]
+        if r["ms"] and r["library_ms"] and not r["ms"] <= r["library_ms"]:
+            raise AssertionError(f"row_gather_sum {label}: {r['ms']} ms, above the library "
+                                 f"call's {r['library_ms']} ms")
+    return out, {"GB_per_s": l2_gbs, "case": l2_case}
+
+
+def gather_claims_sweep(device) -> list:
+    """Claims forced on and off where they could pay (more indices than rows),
+    on the probe's access pattern (each row gathered `repeats` times) over
+    tables of 64 sub-voxels a row (16-byte loads) and 27 (4-byte loads) from
+    1024 to 32768 rows: both checked, both timed, and whether the wrapper's
+    choice (claims_pay) was the faster. The thresholds CLAIM_MIN_BYTES are
+    read from these numbers."""
+    points = [(64, rows, 4) for rows in (1024, 2048, 4096, 8192, 12288, 16640)]
+    points += [(64, 16640, 2)] + [(27, rows, 4) for rows in (2048, 4096, 6144, 8192, 16384,
+                                                              32768)]
+    out = []
+    for B, rows, repeats in points:
+        src, idx = probe.probe_inputs(64, B, rows, rows * repeats // 64, device)
+        ref = probe.row_gather_sum_ref(idx, src)
+        ms = {}
+        for mode in (True, False):
+            gather_err(f"sweep B={B} rows={rows} claims {mode}",
+                       probe._row_gather(idx, src, mode), ref)
+            ms[mode] = device_ms(lambda: probe._row_gather(idx, src, mode))
+        pick = probe.claims_pay(idx.shape[0], rows, B, True, False)
+        out.append({"B": B, "rows": rows, "repeats": repeats,
+                    "gathered_MB": idx.shape[0] * B * 12 / 2**20, "claims_ms": ms[True],
+                    "no_claims_ms": ms[False], "wrapper_claims": pick,
+                    "wrapper_faster": (ms[pick] <= ms[not pick]) if None not in ms.values()
+                    else None})
+    log(f"probe row_gather_sum claims sweep: {out}")
+    return out
+
+
+def _two_tables(device):
+    """The association table's case and a second table of its shape whose row
+    sums all differ from the first's: launches that alternate between them on
+    one claim scratch return a wrong sum if a stale published word is read."""
+    src, idx = probe.probe_inputs(64, 64, 16640, 1024, device)
+    if not probe.claims_pay(idx.shape[0], src.shape[0], src.shape[1], True, False):
+        raise AssertionError("the wrapper does not claim rows at the association table's case")
+    return (src, -src), idx
+
+
+def gather_two_streams(device, rounds: int = 10) -> dict:
+    """Launches on two streams at once, each stream with its own claim
+    scratch and alternating between two tables: every result equals the
+    plain version. The launches are counted by the wrapper's counter."""
+    tables, idx = _two_tables(device)
+    idx2 = idx.flip(0).contiguous()
+    streams = [torch.cuda.Stream(device), torch.cuda.Stream(device)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(device))
+    before = probe.launches["row_gather_sum"]
+    results = []
+    for r in range(rounds):
+        for j, (st, ix) in enumerate(zip(streams, (idx, idx2))):
+            src = tables[(r + j) % 2]
+            with torch.cuda.stream(st):
+                results.append((ix, src, probe.row_gather_sum(ix, src)))
+    torch.cuda.synchronize()
+    launched = probe.launches["row_gather_sum"] - before
+    worst = max(gather_err("two streams", got, probe.row_gather_sum_ref(ix, src))[1]
+                for ix, src, got in results)
+    keys = [k for k in probe._scratch if k[1] in {st.cuda_stream for st in streams}]
+    if len(keys) != 2:
+        raise AssertionError(f"two streams shared claim scratch: {keys}")
+    log(f"probe row_gather_sum two streams, two tables in turn: {launched} launches, "
+        f"max rel err {worst:.3g}")
+    return {"launches": launched, "max_rel_err": worst}
+
+
+def gather_epoch_wrap(device) -> dict:
+    """Launches across the wrap of the claim epoch (the wrapper zeroes the
+    tags and starts again at 1), with the limit lowered to reach it and the
+    two tables in turn: every result equals the plain version."""
+    tables, idx = _two_tables(device)
+    refs = [probe.row_gather_sum_ref(idx, src) for src in tables]
+    probe.row_gather_sum(idx, tables[0])
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    saved, epochs = probe.EPOCH_LIMIT, []
+    probe.EPOCH_LIMIT = probe._scratch[key][2] + 3
+    try:
+        for j in range(1, 7):
+            gather_err("epoch wrap", probe.row_gather_sum(idx, tables[j % 2]), refs[j % 2])
+            epochs.append(probe._scratch[key][2])
+    finally:
+        probe.EPOCH_LIMIT = saved
+    if 1 not in epochs:
+        raise AssertionError(f"the claim epoch did not wrap: {epochs}")
+    log(f"probe row_gather_sum across the epoch wrap, two tables in turn: epochs {epochs}, "
+        "all equal")
+    return {"epochs": epochs}
+
+
+def gather_graph(device) -> dict:
+    """The gather captured in a CUDA graph (where the wrapper does not claim
+    rows) and replayed on each of the two tables copied into its input:
+    every replay equals the plain version on the table of that replay."""
+    tables, idx = _two_tables(device)
+    static = tables[0].clone()
+    probe.row_gather_sum(idx, static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = probe.row_gather_sum(idx, static)
+    worst = 0.0
+    for src in (*tables, tables[0]):
+        static.copy_(src)
+        graph.replay()
+        worst = max(worst, gather_err("graph replay", got, probe.row_gather_sum_ref(idx, src))[1])
+    log(f"probe row_gather_sum in a CUDA graph: 3 replays on two tables, max rel err {worst:.3g}")
+    return {"replays": 3, "max_rel_err": worst}
+
+
 def phase_probe(device) -> dict:
     """The probe kernels against their plain versions and the library calls,
     then the probe's entry points with the launch counts reset."""
@@ -400,33 +623,11 @@ def phase_probe(device) -> dict:
     del x, o
     log("probe scale2: a misaligned 1002-element view is exact")
 
-    out["row_gather_sum"] = {}
-    for label, (C, B, rows, tiles) in {"probe_defaults": (64, 64, 4096, 8),
-                                       "map_table": (64, 64, 16640, 1024)}.items():
-        src, idx = probe.probe_inputs(C, B, rows, tiles, device)
-        got, ref = probe.row_gather_sum(idx, src), probe.row_gather_sum_ref(idx, src)
-        torch.cuda.synchronize()
-        rel = float(((got - ref).abs() / ref.abs()).max())
-        if not rel <= GATHER_RTOL:
-            raise AssertionError(f"row_gather_sum {label}: relative error {rel} > {GATHER_RTOL}")
-        n = tiles * C
-        nb = probe.gather_bytes(idx, src)
-        b_ms, b_by = bound(nb, n * B * 3)
-        rec = {"gathered_rows": n, "table_MB": rows * B * 12 / 1e6,
-               "gathered_MB": n * B * 12 / 1e6, "max_abs_err": float((got - ref).abs().max()),
-               "max_rel_err": rel,
-               "ms": device_ms(lambda: probe.row_gather_sum(idx, src)),
-               "plain_ms": device_ms(lambda: probe.row_gather_sum_ref(idx, src)),
-               "library_ms": device_ms(lambda: src[idx.long()].sum(1)),
-               "call_ms": probe.chained_ms(lambda: probe.row_gather_sum(idx, src)),
-               "bound_ms": b_ms, "bound_by": b_by}
-        for key in ("ms", "plain_ms", "library_ms"):
-            rec[key.replace("ms", "GB_per_s")] = (n * B * 12 / (rec[key] * 1e6)
-                                                 if rec[key] else None)
-        rec["ns_per_row"] = rec["ms"] * 1e6 / n if rec["ms"] else None
-        out["row_gather_sum"][label] = rec
-        log(f"probe row_gather_sum {label} (C={C} B={B} rows={rows} tiles={tiles}): "
-            f"max rel err {rel:.3g}; {rec}")
+    out["row_gather_sum"], out["row_gather_l2_rate"] = gather_cases(device)
+    out["row_gather_claims_sweep"] = gather_claims_sweep(device)
+    out["row_gather_two_streams"] = gather_two_streams(device)
+    out["row_gather_epoch_wrap"] = gather_epoch_wrap(device)
+    out["row_gather_graph"] = gather_graph(device)
 
     torch.cuda.empty_cache()
     probe.launches.update(scale2=0, row_gather_sum=0)
@@ -738,7 +939,8 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     """The octant-KNN kernel on the arguments captured from the paths' own
     calls: exactness, device and call times against the plain version, the
     bound, the sharing counts and the L2 figure (the hits' row bytes, points
-    and occupancy, over the row-gather rate measured in this run)."""
+    and occupancy, over the rate of the row gather that reads each row once,
+    measured in this run)."""
     out = {}
     for path, calls in runs.items():
         if not calls:
@@ -807,11 +1009,14 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, path: dic
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
          "call_ms": s["call_ms"], "by_shape": prb["scale2"]},
         {"name": "row_gather_sum", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
-         "replaces": "tools/pallas_probe.py:68", "launches": prb["launches"]["row_gather_sum"],
+         "replaces": "tools/pallas_probe.py:45", "launches": prb["launches"]["row_gather_sum"],
          "max_abs_err": max(v["max_abs_err"] for v in g.values()),
          "ms": g["map_table"]["ms"], "plain_ms": g["map_table"]["plain_ms"],
          "bound_ms": g["map_table"]["bound_ms"], "bound_by": g["map_table"]["bound_by"],
-         "library_ms": g["map_table"]["library_ms"], "by_shape": g},
+         "library_ms": g["map_table"]["library_ms"],
+         "l2_bound_ms": g["map_table"]["l2_bound_ms"], "l2_rate": prb["row_gather_l2_rate"],
+         "by_shape": g, "claims_sweep": prb["row_gather_claims_sweep"],
+         "two_streams": prb["row_gather_two_streams"], "graph": prb["row_gather_graph"]},
     ]}
 
 
@@ -861,7 +1066,7 @@ def main() -> int:
     lio_run = timed("lio", phase_lio, device)
     timed("lio-cpu", phase_lio_cpu, lio_run)
     path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"]},
-                 prb["row_gather_sum"]["map_table"]["GB_per_s"])
+                 prb["row_gather_sum"]["distinct"]["GB_per_s"])
     log("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
 

@@ -51,6 +51,8 @@ from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_torch.nn import octant_knn as ok
 from agi_lidar_slam_torch.runtime import lio_pipeline as lio
 from agi_lidar_slam_torch.tools import probe
+from agi_lidar_slam_torch.tools.variants import build_library, git_source
+from agi_lidar_slam_torch.tools.variants import replaced as _rep
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BUILD = _build.BUILD_DIR / "knn_bench"
@@ -71,13 +73,6 @@ CONSTANTS = {
 VARIANTS = ("earlier", "split", "timed", *CONSTANTS)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAUNCH = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _P, _P, _P, _I, _P]
-
-
-def _rep(s: str, old: str, new: str, every: bool = False) -> str:
-    """s with `old` (found once, or at least once if `every`) replaced."""
-    if s.count(old) != 1 and not (every and s.count(old)):
-        raise RuntimeError(f"the kernel source changed: {old[:60]!r} found {s.count(old)} times")
-    return s.replace(old, new)
 
 
 def _rename(s: str, name: str) -> str:
@@ -169,8 +164,7 @@ def _timed(src: str) -> str:
 
 def prepare(rev: str = EARLIER) -> None:
     """Write the earlier kernel (from git) and the current source's variants."""
-    earlier = subprocess.run(["git", "show", f"{rev}:{SOURCE}"], cwd=ROOT, check=True,
-                             capture_output=True, text=True).stdout
+    earlier = git_source(ROOT, SOURCE, rev)
     src = (ROOT / SOURCE).read_text()
     BUILD.mkdir(parents=True, exist_ok=True)
     out = {"earlier": _rename(earlier, "earlier"), "split": _split(src), "timed": _timed(src)}
@@ -185,20 +179,7 @@ def prepare(rev: str = EARLIER) -> None:
 
 
 def _load() -> ctypes.CDLL:
-    nvcc = _build.find_nvcc()
-    jobs = [(name, subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(BUILD / f"{name}.o"),
-         str(BUILD / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in VARIANTS]
-    for name, proc in jobs:
-        log, _ = proc.communicate()
-        print(f"--- {name}\n{log}", flush=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}")
-    so = BUILD / "libknn_bench.so"
-    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-                    *(str(BUILD / f"{name}.o") for name in VARIANTS)], check=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build_library(BUILD, VARIANTS, "libknn_bench.so")
     lib.earlier_octant_knn_launch.argtypes = _LAUNCH
     lib.split_octant_knn_launch.argtypes = _LAUNCH + [_I]
     lib.timed_octant_knn_launch.argtypes = _LAUNCH + [_P, _P]
@@ -291,8 +272,8 @@ def run(out: str = str(BUILD / "results.json")) -> None:
     _build.load()
     lib = _load()
     print(f"knn_bench: built in {time.perf_counter() - t0:.1f} s", flush=True)
-    src, idx = probe.probe_inputs(64, 64, 16640, 1024, device)
-    gbs = 65536 * 768 / (cs.device_ms(lambda: probe.row_gather_sum(idx, src)) * 1e6)
+    src, idx = probe.distinct_inputs(seed=cs.SEED, device=device)  # each row once
+    gbs = idx.numel() * 768 / (cs.device_ms(lambda: probe.row_gather_sum(idx, src)) * 1e6)
     cfg, lcfg = preset_aloam_kitti64(), lio.LioConfig()
     rng = np.random.default_rng(cs.SEED)
     cases = []

@@ -148,3 +148,108 @@ def test_reference_stage1_indexes_a_row():
         out_shape=jax.ShapeDtypeStruct((tiles * C, 3), jnp.float32), interpret=True)
     with pytest.raises(TypeError):
         call(idx.reshape(tiles, C), src)
+
+
+def _float64_sums(idx, src):
+    s, ix = src.numpy().astype(np.float64), idx.numpy()
+    ok = (ix >= 0) & (ix < s.shape[0])
+    out = np.full((ix.shape[0], 3), np.nan)
+    out[ok] = s[ix[ok]].sum(axis=1)
+    return out
+
+
+@pytest.mark.parametrize("case", ["one_row", "distinct", "bucket125"])
+def test_row_gather_sum_cases_against_float64(case):
+    """chip_smoke's row-gather cases, at a small size: all copies of one row,
+    each row once (a permutation), and rows of 125 sub-voxels with indices
+    outside the table (whole numbers, so the sums are exact)."""
+    make = {"one_row": lambda: probe.one_row_inputs(4096, 64, 300, seed=3, device="cpu"),
+            "distinct": lambda: probe.distinct_inputs(64, 300, seed=3, device="cpu"),
+            "bucket125": lambda: probe.bucket_inputs(125, 40, 200, seed=3, device="cpu")}
+    src, idx = make[case]()
+    out, expect = probe.row_gather_sum(idx, src).numpy(), _float64_sums(idx, src)
+    if case == "bucket125":
+        assert np.isnan(expect).any() and not np.isnan(expect).all()
+        np.testing.assert_array_equal(out, expect)
+    else:
+        np.testing.assert_allclose(out, expect, rtol=1e-6, atol=0)
+    if case == "distinct":
+        assert sorted(idx.tolist()) == list(range(300))
+    if case == "one_row":
+        assert torch.unique(idx).numel() == 1
+
+
+def test_gather_bytes_of_the_distinct_and_one_row_cases():
+    src, idx = probe.distinct_inputs(device="cpu")  # 16640 rows, each once
+    assert probe.gather_bytes(idx, src) == 16640 * 768 + 16640 * 16
+    src, idx = probe.one_row_inputs(device="cpu")  # 65,536 copies of one row
+    assert probe.gather_bytes(idx, src) == 768 + 65536 * 16
+    src, idx = probe.bucket_inputs(27, 10, 64, seed=0, device="cpu")  # outside: no row
+    inside = torch.unique(idx[(idx >= 0) & (idx < 10)]).numel()
+    assert probe.gather_bytes(idx, src) == inside * 27 * 12 + 64 * 16
+
+
+def test_case_builders_are_deterministic_in_the_seed():
+    for make in (lambda s: probe.distinct_inputs(64, 300, seed=s, device="cpu"),
+                 lambda s: probe.one_row_inputs(64, 64, 300, seed=s, device="cpu"),
+                 lambda s: probe.bucket_inputs(27, 50, 100, seed=s, device="cpu")):
+        (a_src, a_idx), (b_src, b_idx), (_, c_idx) = make(5), make(5), make(6)
+        assert torch.equal(a_src, b_src) and torch.equal(a_idx, b_idx)
+        assert not torch.equal(a_idx, c_idx)
+
+
+def test_gather_scratch_is_per_key_grows_and_wraps(monkeypatch):
+    """The claim scratch of the card's row gather, driven with CPU tensors:
+    one per (device, stream) key, at least `rows` rows, the epoch advanced a
+    launch and, at EPOCH_LIMIT, the tags zeroed and the epoch back at 1."""
+    monkeypatch.setattr(probe, "_scratch", {})
+    monkeypatch.setattr(probe, "EPOCH_LIMIT", 4)
+    tag, sums, e1 = probe.gather_scratch(("a", 1), 10, "cpu")
+    assert tag.shape == (10,) and sums.shape == (10, 4) and e1 == 1
+    tag[:], sums[:] = 7, 7
+    _, _, e2 = probe.gather_scratch(("a", 1), 10, "cpu")
+    _, _, other = probe.gather_scratch(("a", 2), 10, "cpu")  # another stream: its own
+    assert (e2, other) == (2, 1) and len(probe._scratch) == 2
+    _, _, e3 = probe.gather_scratch(("a", 1), 10, "cpu")
+    tag4, _, e4 = probe.gather_scratch(("a", 1), 10, "cpu")  # the wrap
+    assert (e3, e4) == (3, 1) and tag4 is tag and not (bool(tag.any()) or bool(sums.any()))
+    big, _, e5 = probe.gather_scratch(("a", 1), 15, "cpu")  # grown: new, zeroed
+    assert big.shape == (20,) and e5 == 1 and not bool(big.any())
+
+
+@pytest.mark.parametrize("bucket,aligned,loads", [(64, True, "16-byte"), (64, False, "4-byte"),
+                                                 (27, True, "4-byte")])
+def test_claims_pay_only_on_large_repeated_gathers_and_never_under_capture(bucket, aligned,
+                                                                           loads):
+    """The wrapper's choice of row claims, from the shapes alone: more indices
+    than rows and at least CLAIM_MIN_BYTES gathered for the kernel's loads
+    (16-byte at 64 sub-voxels on an aligned table), never under capture."""
+    big = -(-probe.CLAIM_MIN_BYTES[loads] // (bucket * 12))  # fewest indices to reach it
+    assert probe.claims_pay(big, big // 4, bucket, aligned, capturing=False)
+    assert not probe.claims_pay(big, big // 4, bucket, aligned, capturing=True)
+    assert not probe.claims_pay(big - 1, big // 4, bucket, aligned, capturing=False)
+    assert not probe.claims_pay(big, big, bucket, aligned, capturing=False)  # no repeats
+
+
+def test_row_gather_sum_claims_at_the_association_tables_size():
+    assert probe.claims_pay(65536, 16640, 64, True, capturing=False)
+    assert not probe.claims_pay(8192, 2000, 27, True, capturing=False)  # 2.6 MB gathered
+
+
+def test_row_gather_under_capture_takes_no_claims(monkeypatch):
+    """Under CUDA graph capture (simulated: the capture check answers yes) the
+    wrapper reads every row, and forcing claims raises: a replay would reuse
+    the captured epoch and read the captured launch's sums."""
+    src, idx = probe.probe_inputs(64, 64, 300, 20, device="cpu")  # 1280 indices, 300 rows
+    monkeypatch.setattr(probe, "CLAIM_MIN_BYTES", {"16-byte": 0, "4-byte": 0})
+    chose = []
+    real = probe._row_gather
+    monkeypatch.setattr(probe, "_row_gather", lambda i, s, claims: (chose.append(claims),
+                                                                     real(i, s, claims))[1])
+    probe.row_gather_sum(idx, src)
+    monkeypatch.setattr(probe, "_capturing", lambda t: True)
+    out = probe.row_gather_sum(idx, src)
+    assert chose == [True, False]
+    assert torch.equal(out, probe.row_gather_sum_ref(idx, src))
+    with pytest.raises(RuntimeError, match="graph capture"):
+        real(idx, src, True)
