@@ -2,7 +2,8 @@
 
 `config_from_reference` copies a reference config into the port's class of
 the same name, field by field. `state_from_numpy`, `nav_state_from_numpy` and
-`lio_state_from_numpy` take the JAX EngineState / NavState / LioState as
+`lio_state_from_numpy`, `slam_state_from_numpy` and `liosam_state_from_numpy`
+take the JAX EngineState / NavState / LioState / SlamState / LioSamState as
 nested numpy arrays (for example `jax.tree.map(np.asarray, state)`, or nested
 dicts with the same field names) and build the port's on a device;
 `state_to_numpy` goes the other way, as nested dicts; `world_from_numpy`
@@ -22,16 +23,22 @@ from . import config
 from .device import default_device
 from .estimators.ieskf import IeskfConfig
 from .geometry.se3 import Pose
+from .graph.keyframes import KeyframeBank
+from .graph.loop_closure import LoopConfig
+from .graph.pose_graph import EdgeSet
 from .imu.eskf import EskfNoise, NavState
+from .imu.preintegration import ImuNoise
 from .map.hash_map import HashVoxelMap
 from .pointcloud.cloud import PointBatch
+from .runtime.liosam_pipeline import LioSamConfig, LioSamState
 from .runtime.lio_pipeline import LioConfig, LioState
 from .runtime.pipeline import EngineState
+from .runtime.slam_pipeline import SlamConfig, SlamState
 from .sim.world import BoxWorld
 
 _CONFIG_CLASSES = {cls.__name__: cls for cls in (
     config.FeatureConfig, config.MapConfig, config.SolverConfig, config.PipelineConfig,
-    IeskfConfig, EskfNoise, LioConfig)}
+    IeskfConfig, EskfNoise, LioConfig, LoopConfig, SlamConfig, ImuNoise, LioSamConfig)}
 
 
 def config_from_reference(obj):
@@ -59,8 +66,13 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(default_device(device))
 
 
+def _tuple(cls, node, device):
+    """A NamedTuple of tensors of class `cls` from a numpy tree of its fields."""
+    return cls(*(_tensor(_field(node, f), device) for f in cls._fields))
+
+
 def _hmap(node, device) -> HashVoxelMap:
-    return HashVoxelMap(*(_tensor(_field(node, f), device) for f in HashVoxelMap._fields))
+    return _tuple(HashVoxelMap, node, device)
 
 
 def state_from_numpy(tree, device=None) -> EngineState:
@@ -85,7 +97,7 @@ def state_from_numpy(tree, device=None) -> EngineState:
 
 def nav_state_from_numpy(tree, device=None) -> NavState:
     """The port's NavState from a numpy NavState tree."""
-    return NavState(*(_tensor(_field(tree, f), device) for f in NavState._fields))
+    return _tuple(NavState, tree, device)
 
 
 def lio_state_from_numpy(tree, device=None) -> LioState:
@@ -94,6 +106,22 @@ def lio_state_from_numpy(tree, device=None) -> LioState:
                     P=_tensor(_field(tree, "P"), device),
                     map=_hmap(_field(tree, "map"), device),
                     frame=_tensor(_field(tree, "frame"), device))
+
+
+def slam_state_from_numpy(tree, device=None) -> SlamState:
+    """The port's SlamState (engine, bank, edges, last_kf_idx) from a numpy
+    SlamState tree."""
+    return SlamState(engine=state_from_numpy(_field(tree, "engine"), device),
+                     bank=_tuple(KeyframeBank, _field(tree, "bank"), device),
+                     edges=_tuple(EdgeSet, _field(tree, "edges"), device),
+                     last_kf_idx=_tensor(_field(tree, "last_kf_idx"), device))
+
+
+def liosam_state_from_numpy(tree, device=None) -> LioSamState:
+    """The port's LioSamState (engine, v, bg, ba, P, grav) from a numpy
+    LioSamState tree."""
+    return LioSamState(state_from_numpy(_field(tree, "engine"), device),
+                       *(_tensor(_field(tree, f), device) for f in LioSamState._fields[1:]))
 
 
 def state_to_numpy(state) -> dict:

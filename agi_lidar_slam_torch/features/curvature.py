@@ -4,7 +4,7 @@ Port of agi_lidar_slam_tpu/features/curvature.py: 11-point curvature along
 each ring from a wrapped prefix sum, an occlusion / parallel-beam mask, a
 local-max mask plus per-sector top-k for corners, and voxel-downsampled
 low-curvature points for surfs. The LeGO-LOAM segmentation branch is not
-ported and raises.
+ported and raises. `extract_features` is the untimed variant (LIO-SAM's).
 """
 
 from __future__ import annotations
@@ -16,6 +16,11 @@ import torch
 from ..config import FeatureConfig
 from ..pointcloud.cloud import PointBatch, ScanGrid
 from ..pointcloud.voxel import prefix_sum, voxel_downsample_aux
+
+
+class ScanFeatures(NamedTuple):
+    corners: PointBatch  # edge features (capacity R * n_sectors * corners_per_sector)
+    surfs: PointBatch  # planar features (capacity cfg.max_surfs)
 
 
 class TimedFeatures(NamedTuple):
@@ -81,6 +86,11 @@ def occlusion_mask(scan: ScanGrid, cfg: FeatureConfig) -> torch.Tensor:
     diff2 = torch.abs(torch.roll(r, -1, dims=1) - r)
     parallel = (diff1 > 0.02 * r) & (diff2 > 0.02 * r)
     return marked | parallel
+
+
+def extract_features(scan: ScanGrid, cfg: FeatureConfig) -> ScanFeatures:
+    t = extract_features_timed(scan, cfg)
+    return ScanFeatures(t.corners, t.surfs)
 
 
 def extract_features_timed(scan: ScanGrid, cfg: FeatureConfig) -> TimedFeatures:

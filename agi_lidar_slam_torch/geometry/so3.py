@@ -81,7 +81,9 @@ def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
     """Identity quaternions of `shape` on `device` (default: cuda)."""
     device = default_device(device)
     q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    # fill_, not `q[..., 0] = 1.0`: assigning a Python number copies it from
+    # the host, which on the card synchronizes
+    q[..., 0].fill_(1.0)
     return q
 
 

@@ -43,7 +43,8 @@ Phases, each printing its own lines:
                launched 4 times per scan, healthy correspondence counts and
                residuals, ATE against the simulator's ground truth, scans/s
                (over the scans before the last, whose kernel calls are
-               captured for phase 9);
+               captured for phase 13), then the host syncs of each scan in a
+               second, untimed run;
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
                bench.py's circle (radius 8 m, 0.25 rad/s, world seed 3), through
@@ -52,7 +53,27 @@ Phases, each printing its own lines:
                and residuals, ATE against the circle, scans/s (as in 5), then stage
                times, host syncs, launches and the busy share over more scans;
   8. lio-cpu — the same LIO scans with CPU tensors, poses compared;
-  9. path    — the octant-KNN kernel on the path's own inputs: the arguments
+  9. slam    — runtime.slam_pipeline.SlamDriver (bench.py's slam headline:
+               the odometry preset, a 1024-keyframe bank, 2048 edges, the
+               default LoopConfig) over the main phase's scans: after 10
+               scans close_loop_external(newest keyframe, 0) must be accepted
+               (align_loop on the 25-keyframe full27 window, the pose-graph
+               solve, both odometry maps rebuilt from the bank in 32 chunks),
+               then 2 more scans must still track; the kernel 4 times a scan
+               and never in the closure; finite poses and maps; ATE; the
+               keyframe gate's margin at each scan; scans/s without the
+               closure, the closure's stages (synchronized), and the host
+               syncs of each scan in a second run, equal to the main phase's;
+ 10. slam-cpu — the same with CPU tensors: poses, keyframe decisions where the
+               gate's margin exceeds the pose tolerance, the closure's
+               acceptance and fitness, the corrected keyframes;
+ 11. liosam  — runtime.liosam_pipeline.LioSamDriver (bench.py's liosam
+               headline) over the LIO circle's 64x1800 sweeps kept as
+               ScanGrids with their IMU windows: the kernel 4 times a scan,
+               finite state, ATE, scans/s; then host syncs (only those of the
+               solve and the map insert) and the stage split over more scans;
+ 12. liosam-cpu — the same sweeps with CPU tensors, poses compared;
+ 13. path    — the octant-KNN kernel on the path's own inputs: the arguments
                of every call of the last odom scan and of the last LIO scan of
                phases 5 and 7, captured there; each checked against the plain
                version, timed (device, plain, call with the wrapper), with its
@@ -86,11 +107,13 @@ from agi_lidar_slam_torch.config import MapConfig
 from agi_lidar_slam_torch.estimators import ieskf
 from agi_lidar_slam_torch.eval.metrics import ate_rmse
 from agi_lidar_slam_torch.geometry import se3, so3
+from agi_lidar_slam_torch.graph.keyframes import last_index, row
 from agi_lidar_slam_torch.imu.eskf import NavState
 from agi_lidar_slam_torch.map.hash_map import HashVoxelMap, empty_map, insert
 from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_torch.nn import octant_knn
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid
+from agi_lidar_slam_torch.runtime import liosam_pipeline, slam_pipeline
 from agi_lidar_slam_torch.runtime import lio_pipeline as lio
 from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose, circle_velocity
@@ -116,6 +139,16 @@ LIO_CPU_ATE = 0.0041
 LIO_ATE_BOUND = 3 * LIO_CPU_ATE
 LIO_MIN_MATCHES = 1000  # of the 8192-point budget, once the map exists
 LIO_PROFILE_SCANS = 4  # steady scans under torch.profiler / sync counting / stage timing
+# slam: the external closure comes after this many of the main phase's scans
+SLAM_CLOSE_AFTER = 10
+# ATE bounds of the pose-graph engines: 3x the ATE of the same run with CPU
+# tensors (slam-cpu, liosam-cpu), measured on the host CPU of an NVIDIA H100
+# 80GB HBM3 machine, card power limit 700.00 W (the card's runs agreed to
+# 2e-6 m)
+SLAM_CPU_ATE = 0.0108
+SLAM_ATE_BOUND = 3 * SLAM_CPU_ATE
+LIOSAM_CPU_ATE = 0.0033
+LIOSAM_ATE_BOUND = 3 * LIOSAM_CPU_ATE
 # kernel vs plain version: the tolerances of tests/test_vmem_knn.py (one ulp
 # of distance evaluation order; points are copied, so exact in practice)
 SQ_TOL, PTS_TOL = 3e-6, 1e-5
@@ -230,6 +263,23 @@ def sharing(m, queries, qmask, cfg, ktab) -> dict:
             "tiles_staged": int(((per_tile > 0) & (per_tile <= stage_rows)).sum()),
             "tiles_over_stage_rows": int((per_tile > stage_rows).sum()),
             "tile": tile_q, "stage_rows": stage_rows}
+
+
+@contextlib.contextmanager
+def counted_syncs(per_call: list, sites: collections.Counter):
+    """While open, count the host syncs on the card (sync debug mode warns at
+    every synchronizing call): appends the count to `per_call` and adds each
+    call's package-relative file:line to `sites`."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    per_call.append(len(hits))
+    sites.update(f"{w.filename.split('agi_lidar_slam_torch/')[-1]}:{w.lineno}" for w in hits)
 
 
 @contextlib.contextmanager
@@ -722,8 +772,17 @@ def phase_main(device) -> dict:
         raise AssertionError(f"ATE {ate:.4f} m above the bound {ATE_BOUND} m")
     log(f"main: first scan {first_ms:.1f} ms; steady {steady:.2f} scans/s over "
         f"scans {N_WARM}..{N_SCANS - 2} (CUDA events between synchronized scans)")
+    # the host syncs of the same run again, counted apart from the timing
+    syncs, sync_sites = [], collections.Counter()
+    state = moving_start(cfg, device)
+    for s in scans:
+        with counted_syncs(syncs, sync_sites):
+            state, _ = process_scan(state, s, cfg)
+    log(f"main: host syncs per scan {syncs} (sync debug mode); by call site: "
+        f"{dict(sync_sites.most_common())}")
     return {"launches": launches, "scans": scans, "gt": gt, "results": results, "ate": ate,
-            "scans_per_s": steady, "calls": calls}
+            "scans_per_s": steady, "calls": calls, "syncs": syncs,
+            "sync_sites": dict(sync_sites)}
 
 
 def phase_cpu(main: dict) -> None:
@@ -745,13 +804,12 @@ def phase_cpu(main: dict) -> None:
         raise AssertionError("card and CPU poses disagree")
 
 
-def make_lio_inputs(n_scans: int, device):
-    """bench.py's LIO workload made on `device`: 64x1800 scans along the
-    circle (world seed 3, 48 pillars, extent 35 m, 10 Hz), flattened to
-    (115200,) points with per-point seconds, exact 200 Hz IMU windows, and the
-    scan-end ground-truth positions."""
+def lio_sweeps(n_scans: int, device):
+    """bench.py's LIO workload made on `device`: 64x1800 ScanGrids along the
+    circle (world seed 3, 48 pillars, extent 35 m, 10 Hz), exact 200 Hz IMU
+    windows, and the scan-end ground-truth positions."""
     world = default_world(seed=3, n_pillars=48, extent=35.0, device=device)
-    items, gt = [], []
+    sweeps, gt = [], []
     for i in range(n_scans):
         t0, t1 = i * LIO_SCAN_DT, (i + 1) * LIO_SCAN_DT
         p0 = circle_pose(t0, LIO_RADIUS, LIO_OMEGA, device=device)
@@ -762,10 +820,17 @@ def make_lio_inputs(n_scans: int, device):
         gy, ac = circle_imu(ts, LIO_RADIUS, LIO_OMEGA)
         win = lio.ImuWindow(gy, ac, torch.full((LIO_IMU,), LIO_SCAN_DT / LIO_IMU, device=device),
                             torch.ones(LIO_IMU, dtype=torch.bool, device=device))
-        items.append((s.xyz.reshape(-1, 3), (s.time * LIO_SCAN_DT).reshape(-1),
-                      s.mask.reshape(-1), win))
+        sweeps.append((s, win))
         gt.append(p1.t.cpu().numpy())
-    return items, np.stack(gt)
+    return sweeps, np.stack(gt)
+
+
+def make_lio_inputs(n_scans: int, device):
+    """lio_sweeps' scans flattened to (115200,) points with per-point seconds,
+    as the LIO engine takes them."""
+    sweeps, gt = lio_sweeps(n_scans, device)
+    return [(s.xyz.reshape(-1, 3), (s.time * LIO_SCAN_DT).reshape(-1), s.mask.reshape(-1), win)
+            for s, win in sweeps], gt
 
 
 def lio_start(cfg, device):
@@ -779,13 +844,15 @@ def _finite(state) -> bool:
 
 
 @contextlib.contextmanager
-def synchronized_stages(times: dict):
-    """Time the LIO step's stages on the host clock with the card
-    synchronized around each: the pipeline's and the IESKF's module-level
-    functions are wrapped while the context is open."""
-    targets = [(lio, "_propagate_window"), (lio, "undistort_to_end"), (lio, "voxel_downsample"),
-               (lio, "update_iterated"), (lio, "insert_with_stats"), (lio, "bound_map"),
-               (ieskf, "knn_cand"), (ieskf, "_h_model"), (ieskf, "_ktab")]
+def synchronized_stages(times: dict, targets=None):
+    """Time a step's stages on the host clock with the card synchronized
+    around each: the module-level functions `targets` ((module, name) pairs;
+    by default the LIO step's and the IESKF's) are wrapped while the context
+    is open, and each call's ms appended to times[name]."""
+    targets = targets or [
+        (lio, "_propagate_window"), (lio, "undistort_to_end"), (lio, "voxel_downsample"),
+        (lio, "update_iterated"), (lio, "insert_with_stats"), (lio, "bound_map"),
+        (ieskf, "knn_cand"), (ieskf, "_h_model"), (ieskf, "_ktab")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def timed(name, fn):
@@ -862,17 +929,8 @@ def phase_lio(device) -> dict:
     syncs, sync_sites = [], collections.Counter()
     for _ in range(LIO_PROFILE_SCANS):
         pts, tt, m, win = next(rest)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                state, _ = lio.process_lio_scan(state, pts, tt, m, win, cfg)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        hits = [w for w in caught if "synchroniz" in str(w.message)]
-        syncs.append(len(hits))
-        sync_sites.update(f"{w.filename.split('agi_lidar_slam_torch/')[-1]}:{w.lineno}"
-                          for w in hits)
+        with counted_syncs(syncs, sync_sites):
+            state, _ = lio.process_lio_scan(state, pts, tt, m, win, cfg)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -935,6 +993,329 @@ def phase_lio_cpu(run: dict) -> None:
         raise AssertionError("card and CPU LIO poses disagree")
 
 
+def slam_config() -> slam_pipeline.SlamConfig:
+    """bench.py's slam headline: the odometry preset, a 1024-keyframe bank,
+    2048 edges and the default LoopConfig (full27 loop maps of 2^14 slots, a
+    25-keyframe window)."""
+    return slam_pipeline.SlamConfig(pipeline=preset_aloam_kitti64(), bank_capacity=1024,
+                                    edge_capacity=2048)
+
+
+def gate_firm(margin: tuple) -> bool:
+    """Whether a keyframe decision stands clear of rounding: a test of the
+    gate passes by more than the pose tolerance, or both fail by more."""
+    _, m_dist, m_ang = margin
+    return (m_dist > POSE_T_TOL or m_ang > POSE_Q_TOL
+            or (m_dist < -POSE_T_TOL and m_ang < -POSE_Q_TOL))
+
+
+def gate_inputs(bank) -> tuple:
+    """What the keyframe gate reads of a bank: its count and newest pose (no
+    host read)."""
+    last = last_index(bank)
+    return bank.count, row(bank.t, last), row(bank.q, last)
+
+
+def gate_margins(gates: list, results: list, cfg) -> list:
+    """The keyframe gate at each scan: (added, ddist - kf_dist, dang -
+    kf_angle), from gate_inputs of the bank before the scan (gates[i]) and
+    after it (gates[i + 1]); the margins are inf where the bank was empty."""
+    out = []
+    for (n, t, q), (n_after, _, _), res in zip(gates[:-1], gates[1:], results):
+        added = int(n_after) > int(n)
+        if int(n) == 0:
+            out.append((added, float("inf"), float("inf")))
+            continue
+        ddist = float(torch.linalg.vector_norm(res.pose.t - t))
+        dang = float(torch.linalg.vector_norm(so3.quat_log(so3.quat_mul(so3.quat_conj(q),
+                                                                        res.pose.q))))
+        out.append((added, ddist - cfg.kf_dist, dang - cfg.kf_angle))
+    return out
+
+
+def run_slam(device, scans: list, marks: list | None = None, stage_ms: dict | None = None,
+             syncs: list | None = None, sites: collections.Counter | None = None) -> dict:
+    """SlamDriver over `scans` on `device`, started moving, with
+    close_loop_external(n - 1, 0) after the first SLAM_CLOSE_AFTER scans.
+    With `marks`, a CUDA event is recorded there before the first scan, after
+    each scan and after the closure, each followed by a synchronize; with
+    `stage_ms`, the closure's stages are timed there (synchronized); with
+    `syncs`, each scan's host syncs are counted there (and in `sites`).
+    Returns the results, the gate's inputs before every scan and after the
+    last, the closure's outcome and the octant launches per scan."""
+    cfg = slam_config()
+    drv = slam_pipeline.SlamDriver(cfg, device)
+    drv.state = drv.state._replace(engine=moving_start(cfg.pipeline, device))
+    results, gates, launches = [], [], []
+    closure = {}
+
+    def mark():
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize()
+
+    real_align = slam_pipeline.align_loop
+
+    def align_kept(*a, **kw):  # keeps the alignment's (z_rel, fitness, ok)
+        out = real_align(*a, **kw)
+        closure["z"], closure["fitness"], closure["ok"] = out
+        return out
+
+    mark()
+    for i, s in enumerate(scans):
+        if i == SLAM_CLOSE_AFTER:
+            n = int(drv.state.bank.count)
+            before = octant_knn.launches
+            targets = [(slam_pipeline, "align_loop"), (slam_pipeline, "_correct_and_rebuild"),
+                       (slam_pipeline, "solve_pose_graph"), (slam_pipeline, "_chunked_insert")]
+            t0 = time.perf_counter()
+            slam_pipeline.align_loop = align_kept
+            try:
+                with (synchronized_stages(stage_ms, targets) if stage_ms is not None
+                      else contextlib.nullcontext()):
+                    closure["accepted"] = drv.close_loop_external(n - 1, 0)
+            finally:
+                slam_pipeline.align_loop = real_align
+            if marks is not None:
+                torch.cuda.synchronize()
+            closure.update(ms=(time.perf_counter() - t0) * 1e3, n_kf=n,
+                           launches=octant_knn.launches - before,
+                           bank_after=drv.state.bank)
+            mark()
+        gates.append(gate_inputs(drv.state.bank))
+        before = octant_knn.launches
+        with (counted_syncs(syncs, sites) if syncs is not None else contextlib.nullcontext()):
+            res = drv.process(s)
+        mark()
+        launches.append(octant_knn.launches - before)
+        results.append(res)
+    gates.append(gate_inputs(drv.state.bank))
+    return {"cfg": cfg, "driver": drv, "results": results, "gates": gates,
+            "closure": closure, "launches_per_scan": launches}
+
+
+def phase_slam(device, main: dict, card: str) -> dict:
+    """The slam engine (bench.py bench_slam) on the main phase's scans, as a
+    user drives it: SlamDriver.process per scan, an external loop candidate
+    after 10 scans (the newest keyframe against the first: align_loop on the
+    25-keyframe window and, accepted, the pose-graph solve and the rebuild of
+    both odometry maps from the 1024-slot bank in 32 chunks), then the last
+    two scans, which must still track.
+
+    The arc moves 1 m a scan and the gate adds a keyframe past kf_dist = 1.0
+    m, so the gate sits on its threshold within the 1e-3 m by which card and
+    CPU poses may differ: each scan's margin ddist - kf_dist is printed, and
+    slam-cpu holds the card's keyframe decisions to the CPU's only where the
+    margin exceeds POSE_T_TOL."""
+    scans = main["scans"]
+    marks, stage_ms = [], {}
+    octant_knn.launches = 0
+    torch.cuda.synchronize()
+    run = run_slam(device, scans, marks, stage_ms)
+    cfg, drv, results, clo = (run[k] for k in ("cfg", "driver", "results", "closure"))
+    launches = octant_knn.launches
+    first_ms = marks[0].elapsed_time(marks[1])
+    steady = (SLAM_CLOSE_AFTER - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(
+        marks[SLAM_CLOSE_AFTER])
+    per_scan = run["launches_per_scan"]
+    log(f"slam: {len(scans)} scans {RINGS}x{WIDTH}, bank {cfg.bank_capacity}, edges "
+        f"{cfg.edge_capacity}; octant_knn launches per scan {per_scan}, in the closure "
+        f"{clo['launches']}")
+    if any(n != 4 for n in per_scan) or clo["launches"] != 0:
+        raise AssertionError("slam: the octant kernel must run 4 times a scan and not in the "
+                             "closure (its maps are full27)")
+    if not clo["accepted"]:
+        raise AssertionError(f"slam: the external closure ({clo['n_kf'] - 1} -> 0) was rejected, "
+                             f"fitness {float(clo['fitness']):.4f}")
+    margins = gate_margins(run["gates"], results, cfg)
+    st = drv.state
+    n_kf, n_edges = int(st.bank.count), int(st.edges.count)
+    log(f"slam: keyframe gate per scan (added, ddist - kf_dist m, dang - kf_angle rad): "
+        f"{[(a, round(m, 5), round(g, 4)) for a, m, g in margins]}")
+    log(f"slam: {n_kf} keyframes, {n_edges} edges ({drv.n_loops_closed} loop closed); "
+        f"closure accepted, fitness {float(clo['fitness']):.4f}, {clo['ms']:.1f} ms in all; "
+        "synchronized stages ms (calls): " + ", ".join(
+            f"{k} {sum(v):.2f} ({len(v)})" for k, v in stage_ms.items()) + f"; on {card}")
+    n_surf = [int(r.stats.n_surf) for r in results]
+    rms = [float(r.stats.rms) for r in results]
+    est = np.stack([r.pose.t.cpu().numpy() for r in results])
+    quats = np.stack([r.pose.q.cpu().numpy() for r in results])
+    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))
+            and all(bool(torch.isfinite(m.points).all()) for m in
+                    (st.engine.corner_map, st.engine.surf_map))):
+        raise AssertionError("slam: non-finite pose or map")
+    log(f"slam: n_surf={n_surf} rms={[round(x, 4) for x in rms]}")
+    if min(n_surf[1:]) < 100 or max(rms[1:]) >= 0.1:
+        raise AssertionError("slam: the engine does not track (n_surf >= 100, rms < 0.1 once "
+                             "the map exists, also after the closure)")
+    ate = ate_rmse(est, main["gt"], align=False)
+    log(f"slam: ATE={ate:.4f} m (bound {SLAM_ATE_BOUND:.4f}); first scan {first_ms:.1f} ms; "
+        f"steady {steady:.2f} scans/s over scans {N_WARM}..{SLAM_CLOSE_AFTER - 1} (CUDA "
+        f"events between synchronized scans, the closure excluded), on {card}")
+    if not ate < SLAM_ATE_BOUND:
+        raise AssertionError(f"slam ATE {ate:.4f} m above the bound {SLAM_ATE_BOUND:.4f} m")
+    # the host syncs of the same run again, counted apart from the timing;
+    # between closures the driver adds none to process_scan's: the same
+    # counts as the main phase's count of the same scans and states (from
+    # scan 1: the first scan of a process pays one-time syncs)
+    syncs, sites = [], collections.Counter()
+    run_slam(device, scans, syncs=syncs, sites=sites)
+    log(f"slam: host syncs per scan {syncs}, odometry alone (main) {main['syncs']}; by call "
+        f"site: {dict(sites.most_common())}")
+    if syncs[1:SLAM_CLOSE_AFTER] != main["syncs"][1:SLAM_CLOSE_AFTER]:
+        raise AssertionError("slam: the driver adds host syncs to the odometry's")
+    return {"results": results, "margins": margins, "closure": clo, "ate": ate,
+            "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
+            "syncs": syncs, "stage_ms": {k: sum(v) for k, v in stage_ms.items()},
+            "n_kf": n_kf, "n_edges": n_edges}
+
+
+def phase_slam_cpu(run: dict, main: dict) -> None:
+    """The slam run again with CPU tensors: poses, keyframe decisions (where
+    the gate's margin exceeds POSE_T_TOL), the closure's acceptance and
+    fitness and the corrected keyframe trajectory against the card's."""
+    cpu = run_slam("cpu", [ScanGrid(*(a.cpu() for a in s)) for s in main["scans"]])
+    worst_t = worst_q = 0.0
+    for res, gpu in zip(cpu["results"], run["results"]):
+        worst_t = max(worst_t, float((res.pose.t - gpu.pose.t.cpu()).abs().max()))
+        worst_q = max(worst_q, float((res.pose.q - gpu.pose.q.cpu()).abs().max()))
+    est = np.stack([r.pose.t.numpy() for r in cpu["results"]])
+    ate = ate_rmse(est, main["gt"], align=False)
+    margins = gate_margins(cpu["gates"], cpu["results"], cpu["cfg"])
+    differ = [i for i, (a, b) in enumerate(zip(margins, run["margins"])) if a[0] != b[0]]
+    firm = [i for i in differ if gate_firm(margins[i]) and gate_firm(run["margins"][i])]
+    clo, gclo = cpu["closure"], run["closure"]
+    # the corrected keyframes, matched by stamp
+    kb, gb = clo["bank_after"], gclo["bank_after"]
+    kst = {int(s): i for i, s in enumerate(kb.stamp[:int(kb.count)])}
+    gst = {int(s): i for i, s in enumerate(gb.stamp[:int(gb.count)].cpu())}
+    common = sorted(set(kst) & set(gst))
+    kf_dt = max(float((kb.t[kst[s]] - gb.t[gst[s]].cpu()).abs().max()) for s in common)
+    log(f"slam-cpu: {len(est)} scans with CPU tensors: ATE={ate:.4f} m; against the card max "
+        f"|dt|={worst_t:.3g} m, max |dq|={worst_q:.3g}; keyframe decisions differ at scans "
+        f"{differ} (margin above the tolerance at {firm}); closure accepted {clo['accepted']} "
+        f"(card {gclo['accepted']}), fitness {float(clo['fitness']):.5f} (card "
+        f"{float(gclo['fitness']):.5f}); {len(common)} corrected keyframes in common, max "
+        f"|dt| {kf_dt:.3g} m; closure {clo['ms']:.0f} ms on the host CPU")
+    if worst_t > POSE_T_TOL or worst_q > POSE_Q_TOL:
+        raise AssertionError("card and CPU slam poses disagree")
+    if firm:
+        raise AssertionError(f"card and CPU keyframe decisions differ at scans {firm}")
+    if clo["accepted"] != gclo["accepted"] or abs(float(clo["fitness"])
+                                                  - float(gclo["fitness"])) > 1e-3:
+        raise AssertionError("card and CPU loop closures disagree")
+    if kf_dt > POSE_T_TOL:
+        raise AssertionError("card and CPU corrected keyframe trajectories disagree")
+
+
+def liosam_config() -> liosam_pipeline.LioSamConfig:
+    """bench.py's liosam headline: the odometry preset inside LIO-SAM, 10 Hz."""
+    return liosam_pipeline.LioSamConfig(
+        slam=slam_pipeline.SlamConfig(pipeline=preset_aloam_kitti64()), scan_period=0.1)
+
+
+def liosam_driver(cfg, device):
+    return liosam_pipeline.LioSamDriver(
+        cfg, x0=circle_pose(0.0, LIO_RADIUS, LIO_OMEGA, device=device),
+        v0=circle_velocity(0.0, LIO_RADIUS, LIO_OMEGA, device=device), device=device)
+
+
+def phase_liosam(device, main: dict, card: str) -> dict:
+    """The LIO-SAM engine (bench.py bench_liosam) on the LIO circle's 64x1800
+    sweeps, kept as ScanGrids with their exact 200 Hz IMU windows, through
+    LioSamDriver.process: finite state, the kernel 4 times a scan, ATE
+    against the circle and scans/s over 12 scans; then, over LIO_PROFILE_SCANS
+    more each, the host syncs and the stage split (synchronized stages)."""
+    cfg = liosam_config()
+    sweeps, gt = lio_sweeps(N_SCANS + 2 * LIO_PROFILE_SCANS, device)
+    drv = liosam_driver(cfg, device)
+    per_scan, results = [], []
+    octant_knn.launches = 0
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    for s, win in sweeps[:N_SCANS]:
+        before = octant_knn.launches
+        res = drv.process(s, win)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        per_scan.append(octant_knn.launches - before)
+        results.append(res)
+    launches = octant_knn.launches
+    first_ms = marks[0].elapsed_time(marks[1])
+    steady = (N_SCANS - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-1])
+    st = drv.state
+    if not all(bool(torch.isfinite(a).all()) for a in (*st.engine.pose, st.v, st.bg, st.ba, st.P)):
+        raise AssertionError("non-finite LIO-SAM state")
+    n_surf = [int(r.stats.n_surf) for r in results]
+    rms = [float(r.stats.rms) for r in results]
+    est = np.stack([r.pose.t.cpu().numpy() for r in results])
+    ate = ate_rmse(est, gt[:N_SCANS], align=False)
+    log(f"liosam: {N_SCANS} scans {RINGS}x{WIDTH} octant_knn launches per scan {per_scan}; "
+        f"n_surf={n_surf} rms={[round(x, 4) for x in rms]}; {int(drv.bank.count)} keyframes, "
+        f"{int(drv.edges.count)} edges")
+    if any(n != 4 for n in per_scan):
+        raise AssertionError("liosam: the octant kernel must run 4 times a scan")
+    log(f"liosam: ATE={ate:.4f} m (bound {LIOSAM_ATE_BOUND:.4f}); first scan {first_ms:.1f} ms; "
+        f"steady {steady:.2f} scans/s over scans {N_WARM}..{N_SCANS - 1} (CUDA events between "
+        f"synchronized scans), on {card}")
+    if not ate < LIOSAM_ATE_BOUND:
+        raise AssertionError(f"LIO-SAM ATE {ate:.4f} m above the bound {LIOSAM_ATE_BOUND:.4f} m")
+    syncs, sites = [], collections.Counter()
+    rest = iter(sweeps[N_SCANS:])
+    for _ in range(LIO_PROFILE_SCANS):
+        s, win = next(rest)
+        with counted_syncs(syncs, sites):
+            drv.process(s, win)
+    log(f"liosam: host syncs per scan {syncs} (sync debug mode); by call site over "
+        f"{LIO_PROFILE_SCANS} scans: {dict(sites.most_common())}")
+    # no sync of the driver's own, nor of the preintegration, deskew and
+    # fusion: only the odometry's sources (the solve, the map insert)
+    odom_files = {site.rsplit(":", 1)[0] for site in main["sync_sites"]}
+    extra = [site for site in sites if site.rsplit(":", 1)[0] not in odom_files]
+    if extra:
+        raise AssertionError(f"liosam: host syncs outside the solve and the insert: {extra}")
+    times: dict = {}
+    stages = [(liosam_pipeline, n) for n in (
+        "preintegrate", "deskew_with_imu", "extract_features", "voxel_downsample",
+        "solve_scan2map", "_fuse", "insert_with_stats", "bound_map", "_keyframe_step_body",
+        "detect_loop")]
+    with synchronized_stages(times, stages):
+        for s, win in rest:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv.process(s, win)
+            torch.cuda.synchronize()
+            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
+    stage_ms = {k: sum(v) / LIO_PROFILE_SCANS for k, v in times.items()}
+    log("liosam: synchronized stage times, ms per scan (calls per scan): " + ", ".join(
+        f"{k} {v:.2f} ({len(times[k]) / LIO_PROFILE_SCANS:g})" for k, v in stage_ms.items())
+        + f"; on {card}")
+    return {"sweeps": sweeps[:N_SCANS], "gt": gt[:N_SCANS], "results": results, "ate": ate,
+            "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
+            "syncs": syncs, "stage_ms": stage_ms}
+
+
+def phase_liosam_cpu(run: dict) -> None:
+    """The same LIO-SAM sweeps with CPU tensors; poses must agree with the card's."""
+    drv = liosam_driver(liosam_config(), "cpu")
+    worst_t = worst_q = 0.0
+    est = []
+    for (s, win), gpu in zip(run["sweeps"], run["results"]):
+        res = drv.process(ScanGrid(*(a.cpu() for a in s)),
+                          lio.ImuWindow(*(a.cpu() for a in win)))
+        est.append(res.pose.t.numpy())
+        worst_t = max(worst_t, float((res.pose.t - gpu.pose.t.cpu()).abs().max()))
+        worst_q = max(worst_q, float((res.pose.q - gpu.pose.q.cpu()).abs().max()))
+    ate = ate_rmse(np.stack(est), run["gt"], align=False)
+    log(f"liosam-cpu: {len(est)} scans with CPU tensors: ATE={ate:.4f} m; against the card "
+        f"max |dt|={worst_t:.3g} m, max |dq|={worst_q:.3g}")
+    if worst_t > POSE_T_TOL or worst_q > POSE_Q_TOL:
+        raise AssertionError("card and CPU LIO-SAM poses disagree")
+
+
 def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     """The octant-KNN kernel on the arguments captured from the paths' own
     calls: exactness, device and call times against the plain version, the
@@ -977,7 +1358,8 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     return out
 
 
-def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, path: dict) -> dict:
+def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
+                 liosam_run: dict, path: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -992,8 +1374,9 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, path: dic
     return {"kernels": [
         {"name": "octant_knn", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/octant_knn.cu",
          "replaces": "agi_lidar_slam_tpu/nn/vmem_knn.py:150",
-         "launches": main_run["launches"] + lio_run["launches"],
-         "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"]},
+         "launches": sum(r["launches"] for r in (main_run, lio_run, slam_run, liosam_run)),
+         "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"],
+                              "slam": slam_run["launches"], "liosam": liosam_run["launches"]},
          "max_abs_err": max(kern["max_abs_err"], *(v["max_abs_err"] for v in path.values())),
          "ms": t["lio"]["device_ms"],
          "plain_ms": t["lio"]["plain_device_ms"], "bound_ms": t["lio"]["bound_ms"],
@@ -1002,7 +1385,9 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, path: dic
              "device_ms", "plain_device_ms", "call_ms", "plain_call_ms", "bound_ms")},
          "path_inputs": {name: {key: v[key] for key in path_keys} for name, v in path.items()},
          "odom_scans_per_s": main_run["scans_per_s"], "odom_ate_m": main_run["ate"],
-         "lio_scans_per_s": lio_run["scans_per_s"], "lio_ate_m": lio_run["ate"]},
+         "lio_scans_per_s": lio_run["scans_per_s"], "lio_ate_m": lio_run["ate"],
+         "slam_scans_per_s": slam_run["scans_per_s"], "slam_ate_m": slam_run["ate"],
+         "liosam_scans_per_s": liosam_run["scans_per_s"], "liosam_ate_m": liosam_run["ate"]},
         {"name": "scale2", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:29", "launches": prb["launches"]["scale2"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -1065,12 +1450,17 @@ def main() -> int:
     timed("cpu", phase_cpu, main_run)
     lio_run = timed("lio", phase_lio, device)
     timed("lio-cpu", phase_lio_cpu, lio_run)
+    slam_run = timed("slam", phase_slam, device, main_run, smi)
+    timed("slam-cpu", phase_slam_cpu, slam_run, main_run)
+    liosam_run = timed("liosam", phase_liosam, device, main_run, smi)
+    timed("liosam-cpu", phase_liosam_cpu, liosam_run)
     path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"]},
                  prb["row_gather_sum"]["distinct"]["GB_per_s"])
     log("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
 
-    print(json.dumps(kernels_line(kern, prb, main_run, lio_run, path)), flush=True)
+    print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, path)),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

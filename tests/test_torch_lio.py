@@ -40,13 +40,17 @@ from agi_lidar_slam_torch.estimators import ieskf as tieskf
 from agi_lidar_slam_torch.geometry import se3 as tse3
 from agi_lidar_slam_torch.geometry import so3 as tso3
 from agi_lidar_slam_torch.imu import eskf as teskf
+from agi_lidar_slam_torch.graph import keyframes as tkf
+from agi_lidar_slam_torch.graph import pose_graph as tpg
 from agi_lidar_slam_torch.imu import preintegration as tpre
 from agi_lidar_slam_torch.map import hash_map as thm
 from agi_lidar_slam_torch.nn import knn as tknn
 from agi_lidar_slam_torch.pointcloud import voxel as tvox
 from agi_lidar_slam_torch.pointcloud.cloud import PointBatch as TBatch
+from agi_lidar_slam_torch.runtime import liosam_pipeline as tls
 from agi_lidar_slam_torch.runtime import lio_pipeline as tlio
 from agi_lidar_slam_torch.runtime import pipeline as tpipe
+from agi_lidar_slam_torch.runtime import slam_pipeline as tslam
 from agi_lidar_slam_torch.sim import trajectory as ttraj
 from agi_lidar_slam_torch.sim import world as tworld
 from agi_lidar_slam_tpu.config import MapConfig
@@ -498,6 +502,14 @@ ENTRY_POINTS = {
     "default_world": lambda: tworld.default_world(seed=1),
     "NavState.identity": teskf.NavState.identity,
     "circle_pose": lambda: ttraj.circle_pose(0.0, RADIUS, OMEGA),
+    "init_slam": lambda: tslam.init_slam(tslam.SlamConfig(bank_capacity=2, edge_capacity=2)),
+    "empty_bank": lambda: tkf.empty_bank(2, 4, 4),
+    "empty_edges": lambda: tpg.empty_edges(2),
+    "init_liosam_state": lambda: tls.init_liosam_state(tls.LioSamConfig()),
+    "SlamDriver": lambda: tslam.SlamDriver(
+        tslam.SlamConfig(bank_capacity=2, edge_capacity=2)).state,
+    "LioSamDriver": lambda: tls.LioSamDriver(tls.LioSamConfig(
+        slam=tslam.SlamConfig(bank_capacity=2, edge_capacity=2))).state,
 }
 
 

@@ -133,9 +133,10 @@ def test_port_never_imports_jax():
     """In a fresh interpreter where `jax` and the JAX package cannot be
     imported, every module of the port and chip_smoke.py import, and one CPU
     scan of each engine (odometry with octant8 maps, so the kernel module
-    too, and LIO) runs, loading no module of either."""
+    too, LIO, and the slam and LIO-SAM drivers, no closure) runs, loading no
+    module of either."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import dataclasses, importlib, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax...` now raises ImportError
         sys.modules["agi_lidar_slam_tpu"] = None
         import torch
@@ -165,6 +166,17 @@ def test_port_never_imports_jax():
                                             (scan.time * 0.1).reshape(-1),
                                             scan.mask.reshape(-1), win, lcfg)
         assert bool(torch.isfinite(lres.x.p).all()) and int(lstate.frame) == 1
+        from agi_lidar_slam_torch.runtime import liosam_pipeline as ls, slam_pipeline as sp
+        small = dataclasses.replace(cfg, features=dataclasses.replace(
+            cfg.features, max_corners=512, max_surfs=2048))
+        scfg = sp.SlamConfig(pipeline=small, bank_capacity=8, edge_capacity=16)
+        sdrv = sp.SlamDriver(scfg, device="cpu")
+        sres = sdrv.process(simulate_scan(world, p, p, rings=16, width=900))
+        assert bool(torch.isfinite(sres.pose.t).all()) and int(sdrv.state.bank.count) == 1
+        drv = ls.LioSamDriver(ls.LioSamConfig(slam=scfg),
+                              x0=circle_pose(0.0, 8.0, 0.25, device="cpu"), device="cpu")
+        lsres = drv.process(scan, win)
+        assert bool(torch.isfinite(lsres.pose.t).all()) and int(drv.bank.count) == 1
         print("loaded:" + ",".join(sorted(m for m in sys.modules
                               if m.startswith(("jax", "agi_lidar_slam_tpu"))
                               and sys.modules[m] is not None)))
