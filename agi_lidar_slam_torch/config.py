@@ -67,7 +67,7 @@ class SolverConfig:
     n_outer: int = 2  # association passes
     n_inner: int = 4  # GN re-linearizations per association
     k_neighbors: int = 5
-    cand_k: int = 0  # candidate-cache association; 0 disables (not ported here)
+    cand_k: int = 0  # candidate-cache association (>= k_neighbors); 0 disables
     cand_refresh: float = 0.3  # cache skin distance (m)
     corner_gate_sq: float = 1.0  # max sq dist of k-th corner neighbor (m^2)
     surf_gate_sq: float = 1.0

@@ -2,8 +2,9 @@
 
 `config_from_reference` copies a reference config into the port's class of
 the same name, field by field. `state_from_numpy`, `nav_state_from_numpy` and
-`lio_state_from_numpy`, `slam_state_from_numpy` and `liosam_state_from_numpy`
-take the JAX EngineState / NavState / LioState / SlamState / LioSamState as
+`lio_state_from_numpy`, `slam_state_from_numpy`, `liosam_state_from_numpy` and
+`livox_state_from_numpy` take the JAX EngineState / NavState / LioState /
+SlamState / LioSamState / LivoxState as
 nested numpy arrays (for example `jax.tree.map(np.asarray, state)`, or nested
 dicts with the same field names) and build the port's on a device;
 `state_to_numpy` goes the other way, as nested dicts; `world_from_numpy`
@@ -22,6 +23,10 @@ import torch
 from . import config
 from .device import default_device
 from .estimators.ieskf import IeskfConfig
+from .estimators.window_map import MarginalPrior, WindowState
+from .features.dynamic_removal import DynamicRemovalConfig
+from .features.livox import LivoxFeatureConfig
+from .features.mount_calib import MountState
 from .geometry.se3 import Pose
 from .graph.keyframes import KeyframeBank
 from .graph.loop_closure import LoopConfig
@@ -32,13 +37,15 @@ from .map.hash_map import HashVoxelMap
 from .pointcloud.cloud import PointBatch
 from .runtime.liosam_pipeline import LioSamConfig, LioSamState
 from .runtime.lio_pipeline import LioConfig, LioState
+from .runtime.livox_pipeline import LivoxConfig, LivoxState
 from .runtime.pipeline import EngineState
 from .runtime.slam_pipeline import SlamConfig, SlamState
 from .sim.world import BoxWorld
 
 _CONFIG_CLASSES = {cls.__name__: cls for cls in (
     config.FeatureConfig, config.MapConfig, config.SolverConfig, config.PipelineConfig,
-    IeskfConfig, EskfNoise, LioConfig, LoopConfig, SlamConfig, ImuNoise, LioSamConfig)}
+    IeskfConfig, EskfNoise, LioConfig, LoopConfig, SlamConfig, ImuNoise, LioSamConfig,
+    LivoxConfig, LivoxFeatureConfig, DynamicRemovalConfig)}
 
 
 def config_from_reference(obj):
@@ -77,21 +84,14 @@ def _hmap(node, device) -> HashVoxelMap:
 
 def state_from_numpy(tree, device=None) -> EngineState:
     """The port's EngineState from a numpy EngineState tree."""
-    def pose(node):
-        return Pose(_tensor(_field(node, "q"), device), _tensor(_field(node, "t"), device))
-
-    def batch(node):
-        return PointBatch(_tensor(_field(node, "xyz"), device),
-                          _tensor(_field(node, "mask"), device))
-
     return EngineState(
-        pose=pose(_field(tree, "pose")),
-        prev_pose=pose(_field(tree, "prev_pose")),
+        pose=_tuple(Pose, _field(tree, "pose"), device),
+        prev_pose=_tuple(Pose, _field(tree, "prev_pose"), device),
         corner_map=_hmap(_field(tree, "corner_map"), device),
         surf_map=_hmap(_field(tree, "surf_map"), device),
         frame=_tensor(_field(tree, "frame"), device),
-        prev_corners=batch(_field(tree, "prev_corners")),
-        prev_surfs=batch(_field(tree, "prev_surfs")),
+        prev_corners=_tuple(PointBatch, _field(tree, "prev_corners"), device),
+        prev_surfs=_tuple(PointBatch, _field(tree, "prev_surfs"), device),
     )
 
 
@@ -122,6 +122,19 @@ def liosam_state_from_numpy(tree, device=None) -> LioSamState:
     LioSamState tree."""
     return LioSamState(state_from_numpy(_field(tree, "engine"), device),
                        *(_tensor(_field(tree, f), device) for f in LioSamState._fields[1:]))
+
+
+def livox_state_from_numpy(tree, device=None) -> LivoxState:
+    """The port's LivoxState (window, embedded prior, the three feature
+    batches and maps, gravity, frame, mount state) from a numpy LivoxState
+    tree."""
+    return LivoxState(
+        ws=_tuple(WindowState, _field(tree, "ws"), device),
+        prior=_tuple(MarginalPrior, _field(tree, "prior"), device),
+        **{f: _tuple(PointBatch, _field(tree, f), device) for f in ("corners", "surfs", "others")},
+        **{f: _hmap(_field(tree, f), device) for f in ("corner_map", "surf_map", "other_map")},
+        grav=_tensor(_field(tree, "grav"), device), frame=_tensor(_field(tree, "frame"), device),
+        mount=_tuple(MountState, _field(tree, "mount"), device))
 
 
 def state_to_numpy(state) -> dict:

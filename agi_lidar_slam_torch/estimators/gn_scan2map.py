@@ -5,8 +5,14 @@ OUTER iterations re-associate every feature (voxel-map KNN + closed-form
 line/plane fits); INNER iterations re-linearize against the fixed line and
 plane primitives and take a degeneracy-clamped 6x6 step on SE(3).
 
-Not ported here, and raising: the candidate cache (`SolverConfig.cand_k > 0`)
-and the multi-chip hooks (`knn_fn`, `axis_name`).
+With `SolverConfig.cand_k >= k_neighbors` the association keeps a candidate
+cache (`associate_cached`): the first pass probes the map for cand_k
+candidates, later passes re-rank them at the moved pose unless it moved more
+than `cand_refresh` since the probe, which is read on the host once per pass
+after the first (the reference's `lax.cond`). A smaller cand_k runs plain
+`associate`, as in the reference.
+
+Not ported here, and raising: the multi-chip hooks (`knn_fn`, `axis_name`).
 
 Perturbation convention: see geometry/se3.py — right rotation perturbation,
 additive translation: dw/dtheta = -R [p]x, dw/dt = I.
@@ -23,7 +29,7 @@ from ..fit.geometry_fit import fit_lines, fit_planes
 from ..geometry import se3, so3
 from ..map.hash_map import HashVoxelMap
 from ..map.planar import build_ktab
-from ..nn.knn import knn
+from ..nn.knn import knn, knn_cand, knn_reselect
 from ..pointcloud.cloud import PointBatch
 
 
@@ -95,6 +101,52 @@ def associate(
 
     return Correspondences(line.centroid, line.direction, ok_c,
                            plane.normal, plane.offset, ok_s)
+
+
+def associate_cached(
+    pose: se3.Pose,
+    corners: PointBatch,
+    surfs: PointBatch,
+    corner_map: HashVoxelMap,
+    surf_map: HashVoxelMap,
+    cmap_cfg: MapConfig,
+    smap_cfg: MapConfig,
+    cfg: SolverConfig,
+    cand: tuple | None = None,
+    corner_ktab: torch.Tensor | None = None,
+    surf_ktab: torch.Tensor | None = None,
+) -> tuple[Correspondences, tuple]:
+    """Association with a candidate cache (SolverConfig.cand_k). Returns
+    (correspondences, cache); the cache is (corner CandCache, surf CandCache,
+    probe q, probe t).
+
+    With cand=None: one map probe per class for cand_k candidates, whose
+    first k are this pass's neighbours. Later calls re-rank the cached
+    candidates at the updated pose (knn_reselect, no map traffic), unless the
+    pose moved more than cfg.cand_refresh since the probe: then it probes
+    again. That test is one host read. Fits and gates are those of
+    `associate`."""
+    R = so3.quat_to_matrix(pose.q)
+    k = cfg.k_neighbors
+    cw = corners.xyz @ R.T + pose.t
+    sw = surfs.xyz @ R.T + pose.t
+
+    if cand is None or float(_cache_motion(pose, cand[2], cand[3])) > cfg.cand_refresh:
+        cc, nc = knn_cand(corner_map, cw, corners.mask, cfg.cand_k, cmap_cfg, ktab=corner_ktab,
+                          k=k)
+        cs, ns = knn_cand(surf_map, sw, surfs.mask, cfg.cand_k, smap_cfg, ktab=surf_ktab, k=k)
+        cand = (cc, cs, pose.q, pose.t)
+    else:
+        nc = knn_reselect(cand[0], cw, corners.mask, k)
+        ns = knn_reselect(cand[1], sw, surfs.mask, k)
+    gate_c = nc.sq_dists[:, k - 1] < cfg.corner_gate_sq
+    line = fit_lines(nc.points, nc.valid, cfg.line_eig_ratio)
+    ok_c = corners.mask & gate_c & line.ok
+    gate_s = ns.sq_dists[:, k - 1] < cfg.surf_gate_sq
+    plane = fit_planes(ns.points, ns.valid, cfg.plane_tol)
+    ok_s = surfs.mask & gate_s & plane.ok
+    return Correspondences(line.centroid, line.direction, ok_c,
+                           plane.normal, plane.offset, ok_s), cand
 
 
 def normal_equations(
@@ -187,8 +239,7 @@ def solve_scan2map(
         raise NotImplementedError("solve_scan2map(axis_name=...) is not ported to torch")
     if knn_fn is not None:
         raise NotImplementedError("solve_scan2map(knn_fn=...) is not ported to torch")
-    if cfg.cand_k > 0:
-        raise NotImplementedError("solver.cand_k > 0 (candidate cache) is not ported to torch")
+    use_cache = cfg.cand_k >= cfg.k_neighbors
     corner_ktab = _ktab(corner_map, cmap_cfg)
     surf_ktab = _ktab(surf_map, smap_cfg)
 
@@ -206,10 +257,15 @@ def solve_scan2map(
                     torch.zeros((), dtype=torch.int32, device=dev),
                     torch.zeros((), dtype=torch.float32, device=dev),
                     torch.zeros((), dtype=torch.bool, device=dev))
+    cand = None
     for _ in range(cfg.n_outer):
         c_i, s_i = deskewed(pose)
-        corr = associate(pose, c_i, s_i, corner_map, surf_map, cmap_cfg, smap_cfg, cfg,
-                         corner_ktab, surf_ktab)
+        if use_cache:
+            corr, cand = associate_cached(pose, c_i, s_i, corner_map, surf_map, cmap_cfg,
+                                          smap_cfg, cfg, cand, corner_ktab, surf_ktab)
+        else:
+            corr = associate(pose, c_i, s_i, corner_map, surf_map, cmap_cfg, smap_cfg, cfg,
+                             corner_ktab, surf_ktab)
         for _ in range(cfg.n_inner):
             H, g, (n_c, n_s, sq, n_rows) = normal_equations(pose, c_i, s_i, corr, cfg)
             delta, degen = solve_delta(H, g, cfg)

@@ -7,14 +7,15 @@
   over the 12 error dims H touches (pose + extrinsic), exit on |dx| < eps,
   and a Joseph-form covariance update.
 
-The 24x24 solves are f32 Cholesky with the reference's jitter terms.
+The 24x24 solves are f32 Cholesky with the reference's jitter terms. A
+matrix that is not positive-definite gives an all-NaN factor, as in the
+reference, decided on the device (`estimators/linalg.py`): the update then
+returns NaN and `lio_pipeline`'s divergence fallback takes over.
 
 Host reads: the iteration loop reads |dx| back once per finished iteration
-while another is allowed (the reference's `lax.while_loop` exit test), and
-the candidate-cache staleness test reads the motion once per update (the
-reference's post-loop `lax.cond`). The Cholesky factorizations use
-`cholesky_ex`, which reports failure in a tensor instead of raising, as the
-reference returns NaN: no host read there.
+while another is allowed (the reference's `lax.while_loop` exit test, which
+also ends the loop on a NaN step), and the candidate-cache staleness test
+reads the motion once per update (the reference's post-loop `lax.cond`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..map.hash_map import HashVoxelMap
 from ..nn.knn import knn, knn_cand, knn_reselect
 from ..pointcloud.cloud import PointBatch
 from .gn_scan2map import _cache_motion, _ktab
+from .linalg import cho_solve, cholesky
 
 
 class IeskfConfig(NamedTuple):
@@ -92,17 +94,6 @@ def _h_model(x: NavState, pts_l: PointBatch, smap: HashVoxelMap, map_cfg: MapCon
     return H, r, ok
 
 
-def _cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Solve (L L^T) X = B for a lower Cholesky factor L; B (D,) or (D,M)."""
-    if B.dim() == 1:
-        return torch.cholesky_solve(B[:, None], L)[:, 0]
-    return torch.cholesky_solve(B, L)
-
-
-def _cholesky(A: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.cholesky_ex(A)[0]
-
-
 def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
                     smap: HashVoxelMap, map_cfg: MapConfig, cfg: IeskfConfig = IeskfConfig(),
                     axis_name: str | None = None):
@@ -115,7 +106,7 @@ def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
     dev, dt = P_prop.device, P_prop.dtype
     eye = torch.eye(DIM, dtype=dt, device=dev)
     inv_R = 1.0 / cfg.meas_noise
-    P_inv = _cho_solve(_cholesky(P_prop + 1e-8 * eye), eye)
+    P_inv = cho_solve(cholesky(P_prop + 1e-8 * eye), eye)
     P_inv = 0.5 * (P_inv + P_inv.T)
     ktab = _ktab(smap, map_cfg)  # the map does not change during the update
 
@@ -140,7 +131,7 @@ def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
         A[:12, :12] += HtH
         rhs = -(torch.cat([Htr, torch.zeros(DIM - 12, dtype=dt, device=dev)])
                 + P_inv @ boxminus(x, x_prop))
-        dx = _cho_solve(_cholesky(A + 1e-6 * eye), rhs)
+        dx = cho_solve(cholesky(A + 1e-6 * eye), rhs)
         return boxplus(x, dx), torch.linalg.vector_norm(dx)
 
     x, i = x_prop, 0
@@ -148,8 +139,9 @@ def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
         HtH, Htr, n_ok, sq = reduce_h(x, cand0)
         x, dx_norm = solve_step(x, HtH, Htr)
         i += 1
-        # the reference's exit: stop once |dx| < eps, capped at max_iters
-        if i >= cfg.max_iters or float(dx_norm) < cfg.converge_eps:
+        # the reference's exit: go on only while |dx| >= eps (so a NaN step
+        # stops the loop), capped at max_iters
+        if i >= cfg.max_iters or not float(dx_norm) >= cfg.converge_eps:
             break
 
     if use_cache:
@@ -163,12 +155,12 @@ def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
     # Joseph form P = (I-KH) P (I-KH)^T + K Rm K^T with K H = A^-1 embed(HtH)
     A = P_inv.clone()
     A[:12, :12] += HtH
-    L = _cholesky(A + 1e-6 * eye)
+    L = cholesky(A + 1e-6 * eye)
     M = torch.zeros((DIM, DIM), dtype=dt, device=dev)
     M[:12, :12] = HtH
-    KH = _cho_solve(L, M)
+    KH = cho_solve(L, M)
     IKH = eye - KH
-    KRKt = _cho_solve(L, KH.T)
+    KRKt = cho_solve(L, KH.T)
     P_new = IKH @ P_prop @ IKH.T + KRKt
     P_new = 0.5 * (P_new + P_new.T) + 1e-9 * eye
     return x, P_new, n_ok, rms

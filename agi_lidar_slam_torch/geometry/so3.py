@@ -47,6 +47,37 @@ def exp_matrix(w: torch.Tensor) -> torch.Tensor:
     return eye + a * W + b * (W @ W)
 
 
+def _jacobian_coeffs(w: torch.Tensor):
+    """theta^2 and the mask of the small-angle branch, (...,1,1)."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)[..., None]
+    return theta2, theta2 < 1e-8
+
+
+def right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SO(3), Exp(w + d) ~ Exp(w) Exp(Jr(w) d):
+    I - (1 - cos t)/t^2 [w]x + (t - sin t)/t^3 [w]x^2. (...,3)->(...,3,3)."""
+    theta2, small = _jacobian_coeffs(w)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    a = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye - a * W + b * (W @ W)
+
+
+def right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian, Log(Exp(w) Exp(d)) ~ w + Jr^-1(w) d:
+    I + [w]x / 2 + (1/t^2 - (1 + cos t) / (2 t sin t)) [w]x^2."""
+    theta2, small = _jacobian_coeffs(w)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    1.0 / theta2 - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta)))
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + 0.5 * W + c * (W @ W)
+
+
 def log_matrix(R: torch.Tensor) -> torch.Tensor:
     """SO(3) logarithm: rotation matrix (...,3,3) -> rotation vector (...,3).
 
@@ -119,8 +150,10 @@ def quat_exp(w: torch.Tensor) -> torch.Tensor:
     half = 0.5 * theta
     small = theta2 < 1e-8
     k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
-    qw = torch.where(small[..., 0], 1.0 - theta2[..., 0] / 8.0, torch.cos(half[..., 0]))
-    return quat_normalize(torch.cat([qw[..., None], k * w], dim=-1))
+    # kept (...,1): torch.func's forward mode turns a where of 0-d tensors
+    # into a float64 tangent
+    qw = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
+    return quat_normalize(torch.cat([qw, k * w], dim=-1))
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:

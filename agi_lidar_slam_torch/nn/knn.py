@@ -132,7 +132,13 @@ def knn_cand(m: HashVoxelMap, queries: torch.Tensor, qmask: torch.Tensor, C: int
     cache = make_cand(full)
     if k is None:
         return cache
-    return cache, KnnResult(full.points[:, :k], full.sq_dists[:, :k], full.valid[:, :k])
+    return cache, _first_k(full, k)
+
+
+def _first_k(res: KnnResult, k: int) -> KnnResult:
+    """First k of an ascending-by-distance KnnResult (the k-NN of a wider
+    probe, for free)."""
+    return KnnResult(res.points[:, :k], res.sq_dists[:, :k], res.valid[:, :k])
 
 
 def knn_reselect(cand: CandCache, queries: torch.Tensor, qmask: torch.Tensor,

@@ -38,6 +38,7 @@ from ..geometry import se3, so3
 from ..graph.keyframes import empty_bank, last_index
 from ..graph.loop_closure import detect_loop
 from ..graph.pose_graph import empty_edges
+from ..imu.deskew import gyro_rotation_track
 from ..imu.preintegration import ImuNoise, preintegrate
 from ..map.hash_map import bound_map, insert_with_stats
 from ..pointcloud.cloud import PointBatch, ScanGrid
@@ -107,14 +108,8 @@ def _gyro_track(imu: ImuWindow, bg: torch.Tensor):
     the reference's lax.scan does. Returns (qs (M+1,4) rotations from window
     start, ts (M+1,) cumulative times)."""
     dts = torch.where(imu.mask, imu.dt, torch.zeros_like(imu.dt))
-    q = so3.quat_identity(dtype=bg.dtype, device=bg.device)
-    qs = [q]
-    steps = so3.quat_exp((imu.gyro - bg) * dts[:, None])  # (M,4), all at once
-    for k in range(imu.gyro.shape[0]):
-        q = so3.quat_normalize(so3.quat_mul(q, steps[k]))
-        qs.append(q)
     ts = torch.cat([torch.zeros_like(dts[:1]), torch.cumsum(dts, dim=0)])
-    return torch.stack(qs), ts
+    return gyro_rotation_track(imu.gyro - bg, imu.dt, imu.mask), ts
 
 
 def deskew_with_imu(scan: ScanGrid, imu: ImuWindow, bg: torch.Tensor, v_body: torch.Tensor,

@@ -179,9 +179,14 @@ def _gps_edge(bank: KeyframeBank, edges: EdgeSet, gps: torch.Tensor, w_trans,
 
 def _gps_fix(gps, cfg: SlamConfig, device):
     """A GPS argument as (position (3,) on `device`, weight): a bare position
-    takes cfg.gps_w_trans, a (position, weight) pair its own weight."""
+    takes cfg.gps_w_trans, a (position, weight) pair its own weight. A fix
+    from the host goes to the card through a pinned copy, without waiting: a
+    copy from pageable memory synchronizes."""
     pos, w = gps if isinstance(gps, tuple) else (gps, cfg.gps_w_trans)
-    return torch.as_tensor(pos, dtype=torch.float32).to(device), w
+    pos = torch.as_tensor(pos, dtype=torch.float32)
+    if device.type == "cuda" and pos.device.type == "cpu":
+        pos = pos.pin_memory()
+    return pos.to(device, non_blocking=True), w
 
 
 class LoopFlag:

@@ -43,7 +43,7 @@ Phases, each printing its own lines:
                launched 4 times per scan, healthy correspondence counts and
                residuals, ATE against the simulator's ground truth, scans/s
                (over the scans before the last, whose kernel calls are
-               captured for phase 13), then the host syncs of each scan in a
+               captured for phase 15), then the host syncs of each scan in a
                second, untimed run;
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
@@ -63,7 +63,8 @@ Phases, each printing its own lines:
                and never in the closure; finite poses and maps; ATE; the
                keyframe gate's margin at each scan; scans/s without the
                closure, the closure's stages (synchronized), and the host
-               syncs of each scan in a second run, equal to the main phase's;
+               syncs of each scan in a second run with GPS fixes on three
+               scans, equal to the main phase's;
  10. slam-cpu — the same with CPU tensors: poses, keyframe decisions where the
                gate's margin exceeds the pose tolerance, the closure's
                acceptance and fitness, the corrected keyframes;
@@ -73,9 +74,21 @@ Phases, each printing its own lines:
                finite state, ATE, scans/s; then host syncs (only those of the
                solve and the map insert) and the stage split over more scans;
  12. liosam-cpu — the same sweeps with CPU tensors, poses compared;
- 13. path    — the octant-KNN kernel on the path's own inputs: the arguments
-               of every call of the last odom scan and of the last LIO scan of
-               phases 5 and 7, captured there; each checked against the plain
+ 13. livox   — runtime.livox_pipeline.LivoxDriver (bench.py's livox headline:
+               LivoxConfig(), init_frames 4) over the LIO circle's 64x1800
+               sweeps with their IMU windows: LO for 4 sweeps, the MAP
+               initialization, then the sliding-window LIO; engaged after
+               the 4th sweep, the kernel on all three class maps, finite
+               state, ATE (sweep-start ground truth), scans/s over the
+               engaged sweeps, first-sweep and engagement ms; then the host
+               syncs of each sweep (only the listed sites) and the stage
+               split of the window sweep;
+ 14. livox-cpu — the same sweeps with CPU tensors: poses, the engagement and
+               n_dropped equal, the card's ATE under 3x the CPU's; then
+               IMU_Mode 1 (the gyro deskew) on the card and the CPU;
+ 15. path    — the octant-KNN kernel on the path's own inputs: the arguments
+               of every call of the last odom, LIO and livox scans of
+               phases 5, 7 and 13, captured there; each checked against the plain
                version, timed (device, plain, call with the wrapper), with its
                bound, its live queries, hits, distinct rows and rows read per
                tile, and the L2 figure: the hits' row bytes over the
@@ -91,6 +104,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import re
@@ -104,7 +118,7 @@ import torch
 
 from agi_lidar_slam_torch import _build, preset_aloam_kitti64
 from agi_lidar_slam_torch.config import MapConfig
-from agi_lidar_slam_torch.estimators import ieskf
+from agi_lidar_slam_torch.estimators import ieskf, window_map
 from agi_lidar_slam_torch.eval.metrics import ate_rmse
 from agi_lidar_slam_torch.geometry import se3, so3
 from agi_lidar_slam_torch.graph.keyframes import last_index, row
@@ -113,7 +127,7 @@ from agi_lidar_slam_torch.map.hash_map import HashVoxelMap, empty_map, insert
 from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_torch.nn import octant_knn
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid
-from agi_lidar_slam_torch.runtime import liosam_pipeline, slam_pipeline
+from agi_lidar_slam_torch.runtime import livox_pipeline, liosam_pipeline, slam_pipeline
 from agi_lidar_slam_torch.runtime import lio_pipeline as lio
 from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose, circle_velocity
@@ -139,8 +153,10 @@ LIO_CPU_ATE = 0.0041
 LIO_ATE_BOUND = 3 * LIO_CPU_ATE
 LIO_MIN_MATCHES = 1000  # of the 8192-point budget, once the map exists
 LIO_PROFILE_SCANS = 4  # steady scans under torch.profiler / sync counting / stage timing
-# slam: the external closure comes after this many of the main phase's scans
+# slam: the external closure comes after this many of the main phase's scans;
+# GPS fixes go in with these scans of the sync-count run
 SLAM_CLOSE_AFTER = 10
+SLAM_GPS_SCANS = (2, 3, 6)
 # ATE bounds of the pose-graph engines: 3x the ATE of the same run with CPU
 # tensors (slam-cpu, liosam-cpu), measured on the host CPU of an NVIDIA H100
 # 80GB HBM3 machine, card power limit 700.00 W (the card's runs agreed to
@@ -149,6 +165,11 @@ SLAM_CPU_ATE = 0.0108
 SLAM_ATE_BOUND = 3 * SLAM_CPU_ATE
 LIOSAM_CPU_ATE = 0.0033
 LIOSAM_ATE_BOUND = 3 * LIOSAM_CPU_ATE
+# livox: bench.py's init_frames; engaged sweeps timed in the stage split; the
+# IMU_Mode 1 sweeps compared between card and CPU
+LIVOX_INIT_FRAMES = 4
+LIVOX_STAGE_SCANS = 2
+LIVOX_MODE1_SCANS = 4
 # kernel vs plain version: the tolerances of tests/test_vmem_knn.py (one ulp
 # of distance evaluation order; points are copied, so exact in practice)
 SQ_TOL, PTS_TOL = 3e-6, 1e-5
@@ -1034,13 +1055,15 @@ def gate_margins(gates: list, results: list, cfg) -> list:
 
 
 def run_slam(device, scans: list, marks: list | None = None, stage_ms: dict | None = None,
-             syncs: list | None = None, sites: collections.Counter | None = None) -> dict:
+             syncs: list | None = None, sites: collections.Counter | None = None,
+             gps: dict | None = None) -> dict:
     """SlamDriver over `scans` on `device`, started moving, with
     close_loop_external(n - 1, 0) after the first SLAM_CLOSE_AFTER scans.
     With `marks`, a CUDA event is recorded there before the first scan, after
     each scan and after the closure, each followed by a synchronize; with
     `stage_ms`, the closure's stages are timed there (synchronized); with
-    `syncs`, each scan's host syncs are counted there (and in `sites`).
+    `syncs`, each scan's host syncs are counted there (and in `sites`); with
+    `gps`, {scan index: numpy position} fixes go in with those scans.
     Returns the results, the gate's inputs before every scan and after the
     last, the closure's outcome and the octant launches per scan."""
     cfg = slam_config()
@@ -1086,7 +1109,7 @@ def run_slam(device, scans: list, marks: list | None = None, stage_ms: dict | No
         gates.append(gate_inputs(drv.state.bank))
         before = octant_knn.launches
         with (counted_syncs(syncs, sites) if syncs is not None else contextlib.nullcontext()):
-            res = drv.process(s)
+            res = drv.process(s, gps=(gps or {}).get(i))
         mark()
         launches.append(octant_knn.launches - before)
         results.append(res)
@@ -1155,16 +1178,22 @@ def phase_slam(device, main: dict, card: str) -> dict:
         f"events between synchronized scans, the closure excluded), on {card}")
     if not ate < SLAM_ATE_BOUND:
         raise AssertionError(f"slam ATE {ate:.4f} m above the bound {SLAM_ATE_BOUND:.4f} m")
-    # the host syncs of the same run again, counted apart from the timing;
-    # between closures the driver adds none to process_scan's: the same
-    # counts as the main phase's count of the same scans and states (from
-    # scan 1: the first scan of a process pays one-time syncs)
+    # the host syncs of the same run again, counted apart from the timing,
+    # with GPS fixes (host numpy positions) on SLAM_GPS_SCANS; between
+    # closures the driver adds none to process_scan's, fixes included: the
+    # same counts as the main phase's count of the same scans and states
+    # (from scan 1: the first scan of a process pays one-time syncs)
     syncs, sites = [], collections.Counter()
-    run_slam(device, scans, syncs=syncs, sites=sites)
-    log(f"slam: host syncs per scan {syncs}, odometry alone (main) {main['syncs']}; by call "
-        f"site: {dict(sites.most_common())}")
+    fixes = {i: (main["gt"][i] + 0.05).astype(np.float32) for i in SLAM_GPS_SCANS}
+    run_slam(device, scans, syncs=syncs, sites=sites, gps=fixes)
+    pageable = []  # the copy the driver made before it staged fixes in pinned memory
+    with counted_syncs(pageable, collections.Counter()):
+        torch.as_tensor(fixes[SLAM_GPS_SCANS[0]]).to(device)
+    log(f"slam: host syncs per scan {syncs} with GPS fixes at scans {list(fixes)}, odometry "
+        f"alone (main) {main['syncs']}; by call site: {dict(sites.most_common())}; one fix "
+        f"copied from pageable memory: {pageable[0]} syncs")
     if syncs[1:SLAM_CLOSE_AFTER] != main["syncs"][1:SLAM_CLOSE_AFTER]:
-        raise AssertionError("slam: the driver adds host syncs to the odometry's")
+        raise AssertionError("slam: the driver or its GPS fixes add host syncs to the odometry's")
     return {"results": results, "margins": margins, "closure": clo, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
             "syncs": syncs, "stage_ms": {k: sum(v) for k, v in stage_ms.items()},
@@ -1316,6 +1345,188 @@ def phase_liosam_cpu(run: dict) -> None:
         raise AssertionError("card and CPU LIO-SAM poses disagree")
 
 
+def livox_driver(device, imu_mode: int = 2):
+    """bench.py's livox headline: LivoxConfig() exactly (or with another
+    IMU_Mode), LO for 4 sweeps from the circle's first pose, then the window
+    LIO."""
+    cfg = dataclasses.replace(livox_pipeline.LivoxConfig(), imu_mode=imu_mode)
+    return livox_pipeline.LivoxDriver(cfg, init_frames=LIVOX_INIT_FRAMES,
+                                      x0=circle_pose(0.0, LIO_RADIUS, LIO_OMEGA, device=device),
+                                      device=device)
+
+
+def livox_gt(n_scans: int) -> np.ndarray:
+    """The circle's position at each sweep START: the livox engine's pose of a
+    sweep is its first frame's (the first sweep sits at x0, the circle's
+    pose at t = 0, and the map is built in that convention)."""
+    return np.stack([circle_pose(i * LIO_SCAN_DT, LIO_RADIUS, LIO_OMEGA, device="cpu").t.numpy()
+                     for i in range(n_scans)])
+
+
+def _livox_finite(st) -> bool:
+    return all(bool(torch.isfinite(a).all()) for a in (*st.ws, st.prior.H, st.prior.b, st.grav))
+
+
+def phase_livox(device, card: str) -> dict:
+    """The livox engine (bench.py bench_livox) on the LIO circle's 64x1800
+    sweeps with their 20-sample IMU windows, through LivoxDriver.process:
+    LiDAR-only odometry for 4 sweeps, the MAP initialization with the 4th,
+    then the sliding-window LIO. Checks: engaged after the 4th sweep, finite
+    state, the kernel on every sweep (all three class maps are octant8),
+    card ATE later held to 3x the CPU's (livox-cpu). Prints scans/s over the
+    engaged sweeps after the first two, the first sweep's and the
+    engagement's ms, the launches per sweep; then, in a second run of the
+    same sweeps, the host syncs of each sweep and their sites, and a
+    synchronized stage split over LIVOX_STAGE_SCANS more engaged sweeps.
+
+    Host syncs expected (written before the first run on the card): per
+    engaged sweep 2 reads of the window's cache motion (n_outer = 3: passes
+    2 and 3) and one read per claim round of each of the three map inserts
+    (1-3 rounds each): 5-11, all in estimators/window_map.py and
+    map/hash_map.py; per LO sweep also the solve's 3 eigh reads and its 2
+    cache-motion reads (estimators/gn_scan2map.py); the engagement adds the
+    SVD convergence reads of map_initialize's 3 least-squares solves
+    (imu/initialization.py). No other site."""
+    n_total = N_SCANS + LIVOX_STAGE_SCANS
+    sweeps, _ = lio_sweeps(n_total, device)
+    gt = livox_gt(N_SCANS)
+    drv = livox_driver(device)
+    per_scan, results, engaged, calls = [], [], [], []
+    octant_knn.launches = 0
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    for i, (s, win) in enumerate(sweeps[:N_SCANS]):
+        before = octant_knn.launches
+        with (captured_knn_calls(calls) if i == N_SCANS - 1 else contextlib.nullcontext()):
+            res = drv.process(s, win)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        per_scan.append(octant_knn.launches - before)
+        results.append(res)
+        engaged.append(drv.engaged)
+    launches = octant_knn.launches
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(N_SCANS)]
+    first_engaged = engaged.index(True) if True in engaged else None
+    log(f"livox: {N_SCANS} sweeps {RINGS}x{WIDTH}, LivoxConfig(), init_frames "
+        f"{LIVOX_INIT_FRAMES}: engaged after sweep {first_engaged}; octant_knn launches per "
+        f"sweep {per_scan}; n_dropped {[int(r.n_dropped) for r in results]}")
+    if first_engaged != LIVOX_INIT_FRAMES - 1:
+        raise AssertionError(f"livox: engaged after sweep {first_engaged}, expected "
+                             f"{LIVOX_INIT_FRAMES - 1}")
+    # LO sweeps probe the corner and surf maps, window sweeps all three
+    lo_n, win_n = per_scan[:first_engaged + 1], per_scan[first_engaged + 1:]
+    served = {c[4].sub_voxel for c in calls}
+    cfg = drv.cfg
+    if (min(lo_n) < 2 or min(win_n) < 3
+            or served != {m.sub_voxel for m in (cfg.corner_map, cfg.surf_map, cfg.other_map)}):
+        raise AssertionError(f"livox: the octant kernel must serve every class map on every "
+                             f"sweep: launches {per_scan}, maps of the last sweep {served}")
+    if not _livox_finite(drv.state):
+        raise AssertionError("livox: non-finite window state")
+    est = np.stack([r.pose.t.cpu().numpy() for r in results])
+    quats = np.stack([r.pose.q.cpu().numpy() for r in results])
+    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))):
+        raise AssertionError("livox: non-finite pose")
+    ate = ate_rmse(est, gt, align=False)
+    # scans/s over the engaged sweeps after the first two, the last one
+    # (its kernel calls are captured) excluded
+    lo = first_engaged + 3
+    steady = (N_SCANS - 1 - lo) * 1e3 / sum(ms[lo:N_SCANS - 1])
+    init = drv.init_result
+    log(f"livox: ATE={ate:.4f} m (sweep-start ground truth; bound: 3x the CPU's, livox-cpu); "
+        f"first sweep {ms[0]:.1f} ms, engagement sweep {ms[first_engaged]:.1f} ms, first "
+        f"window sweep {ms[first_engaged + 1]:.1f} ms; steady {steady:.2f} scans/s over sweeps "
+        f"{lo}..{N_SCANS - 2} (CUDA events between synchronized sweeps; ms per sweep "
+        f"{[round(x, 1) for x in ms]}); init grav "
+        f"{init.grav.cpu().numpy().round(4).tolist()} ok {bool(init.ok)}; on {card}")
+
+    # the host syncs of each sweep, in a second run of the same sweeps
+    syncs, sites, sweep_sites = [], collections.Counter(), []
+    drv2 = livox_driver(device)
+    for s, win in sweeps[:N_SCANS]:
+        one = collections.Counter()
+        with counted_syncs(syncs, one):
+            drv2.process(s, win)
+        sites.update(one)
+        sweep_sites.append(one)
+    log(f"livox: host syncs per sweep {syncs} (sync debug mode); by call site: "
+        f"{dict(sites.most_common())}")
+    allowed = {"estimators/window_map.py", "map/hash_map.py"}
+    for i, one in enumerate(sweep_sites[1:], start=1):  # sweep 0 pays one-time syncs
+        ok = set(allowed)
+        if i < LIVOX_INIT_FRAMES:
+            ok.add("estimators/gn_scan2map.py")
+        if i == first_engaged:
+            ok.add("imu/initialization.py")
+        extra = [site for site in one if site.rsplit(":", 1)[0] not in ok]
+        if extra:
+            raise AssertionError(f"livox: host syncs of sweep {i} outside the listed sites: "
+                                 f"{extra}")
+
+    times: dict = {}
+    stages = [(livox_pipeline, n) for n in (
+        "remove_dynamic", "extract_livox_features", "voxel_downsample", "preintegrate",
+        "solve_window", "marginalize_oldest", "insert_with_stats", "bound_map")] + [
+        (window_map, n) for n in ("associate_window", "_window_normal_eq", "_imu_jacobian")]
+    with synchronized_stages(times, stages):
+        for s, win in sweeps[N_SCANS:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv.process(s, win)
+            torch.cuda.synchronize()
+            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
+    stage_ms = {k: sum(v) / LIVOX_STAGE_SCANS for k, v in times.items()}
+    log("livox: synchronized stage times, ms per engaged sweep (calls per sweep): " + ", ".join(
+        f"{k} {v:.2f} ({len(times[k]) / LIVOX_STAGE_SCANS:g})" for k, v in stage_ms.items())
+        + f"; on {card}")
+    if not _livox_finite(drv.state):
+        raise AssertionError("livox: non-finite window state in the measured sweeps")
+    return {"sweeps": sweeps[:N_SCANS], "gt": gt, "results": results, "engaged": engaged,
+            "ate": ate, "scans_per_s": steady, "first_ms": ms[0],
+            "engage_ms": ms[first_engaged], "launches": launches, "per_scan": per_scan,
+            "syncs": syncs, "sync_sites": dict(sites), "stage_ms": stage_ms, "calls": calls}
+
+
+def phase_livox_cpu(run: dict, device) -> None:
+    """The livox sweeps again with CPU tensors: poses within POSE_T_TOL and
+    POSE_Q_TOL of the card's, the same engagement sweep and n_dropped, and
+    the card's ATE under 3x the CPU's. Then IMU_Mode 1 (the gyro deskew
+    before the LiDAR-only solve) for LIVOX_MODE1_SCANS sweeps on the card and
+    on the CPU, poses compared."""
+    drv = livox_driver("cpu")
+    worst_t = worst_q = 0.0
+    est = []
+    for (s, win), gpu, eng in zip(run["sweeps"], run["results"], run["engaged"]):
+        res = drv.process(ScanGrid(*(a.cpu() for a in s)),
+                          lio.ImuWindow(*(a.cpu() for a in win)))
+        if drv.engaged != eng or int(res.n_dropped) != int(gpu.n_dropped):
+            raise AssertionError("card and CPU livox runs engage or drop differently")
+        est.append(res.pose.t.numpy())
+        worst_t = max(worst_t, float((res.pose.t - gpu.pose.t.cpu()).abs().max()))
+        worst_q = max(worst_q, float((res.pose.q - gpu.pose.q.cpu()).abs().max()))
+    ate = ate_rmse(np.stack(est), run["gt"], align=False)
+    log(f"livox-cpu: {len(est)} sweeps with CPU tensors: ATE={ate:.4f} m (card "
+        f"{run['ate']:.4f}, bound {3 * ate:.4f}); against the card max |dt|={worst_t:.3g} m, "
+        f"max |dq|={worst_q:.3g}")
+    if worst_t > POSE_T_TOL or worst_q > POSE_Q_TOL:
+        raise AssertionError("card and CPU livox poses disagree")
+    if not run["ate"] < 3 * ate:
+        raise AssertionError(f"livox ATE {run['ate']:.4f} m above 3x the CPU's {ate:.4f} m")
+    card, cpu = livox_driver(device, imu_mode=1), livox_driver("cpu", imu_mode=1)
+    worst_t = worst_q = 0.0
+    for s, win in run["sweeps"][:LIVOX_MODE1_SCANS]:
+        a = card.process(s, win)
+        b = cpu.process(ScanGrid(*(x.cpu() for x in s)), lio.ImuWindow(*(x.cpu() for x in win)))
+        worst_t = max(worst_t, float((a.pose.t.cpu() - b.pose.t).abs().max()))
+        worst_q = max(worst_q, float((a.pose.q.cpu() - b.pose.q).abs().max()))
+    log(f"livox-cpu: IMU_Mode 1, {LIVOX_MODE1_SCANS} sweeps on the card and the CPU: max "
+        f"|dt|={worst_t:.3g} m, max |dq|={worst_q:.3g}")
+    if card.engaged or worst_t > POSE_T_TOL or worst_q > POSE_Q_TOL:
+        raise AssertionError("card and CPU IMU_Mode 1 runs disagree")
+
+
 def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     """The octant-KNN kernel on the arguments captured from the paths' own
     calls: exactness, device and call times against the plain version, the
@@ -1359,7 +1570,7 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
 
 
 def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
-                 liosam_run: dict, path: dict) -> dict:
+                 liosam_run: dict, livox_run: dict, path: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -1374,9 +1585,11 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
     return {"kernels": [
         {"name": "octant_knn", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/octant_knn.cu",
          "replaces": "agi_lidar_slam_tpu/nn/vmem_knn.py:150",
-         "launches": sum(r["launches"] for r in (main_run, lio_run, slam_run, liosam_run)),
+         "launches": sum(r["launches"] for r in (main_run, lio_run, slam_run, liosam_run,
+                                                 livox_run)),
          "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"],
-                              "slam": slam_run["launches"], "liosam": liosam_run["launches"]},
+                              "slam": slam_run["launches"], "liosam": liosam_run["launches"],
+                              "livox": livox_run["launches"]},
          "max_abs_err": max(kern["max_abs_err"], *(v["max_abs_err"] for v in path.values())),
          "ms": t["lio"]["device_ms"],
          "plain_ms": t["lio"]["plain_device_ms"], "bound_ms": t["lio"]["bound_ms"],
@@ -1387,7 +1600,9 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "odom_scans_per_s": main_run["scans_per_s"], "odom_ate_m": main_run["ate"],
          "lio_scans_per_s": lio_run["scans_per_s"], "lio_ate_m": lio_run["ate"],
          "slam_scans_per_s": slam_run["scans_per_s"], "slam_ate_m": slam_run["ate"],
-         "liosam_scans_per_s": liosam_run["scans_per_s"], "liosam_ate_m": liosam_run["ate"]},
+         "liosam_scans_per_s": liosam_run["scans_per_s"], "liosam_ate_m": liosam_run["ate"],
+         "livox_scans_per_s": livox_run["scans_per_s"], "livox_ate_m": livox_run["ate"],
+         "livox_launches_per_scan": livox_run["per_scan"]},
         {"name": "scale2", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:29", "launches": prb["launches"]["scale2"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -1454,13 +1669,16 @@ def main() -> int:
     timed("slam-cpu", phase_slam_cpu, slam_run, main_run)
     liosam_run = timed("liosam", phase_liosam, device, main_run, smi)
     timed("liosam-cpu", phase_liosam_cpu, liosam_run)
-    path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"]},
+    livox_run = timed("livox", phase_livox, device, smi)
+    timed("livox-cpu", phase_livox_cpu, livox_run, device)
+    path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"],
+                                      "livox": livox_run["calls"]},
                  prb["row_gather_sum"]["distinct"]["GB_per_s"])
     log("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
 
-    print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, path)),
-          flush=True)
+    print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, livox_run,
+                                  path)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -161,8 +161,9 @@ def test_unported_solver_branches_raise():
     b = TBatch(torch.zeros((4, 3)), torch.zeros(4, dtype=torch.bool))
     cm, sm = t_empty_map(cfg.corner_map, "cpu"), t_empty_map(cfg.surf_map, "cpu")
     args = (pose, b, b, cm, sm, cfg.corner_map, cfg.surf_map)
-    with pytest.raises(NotImplementedError, match="cand_k"):
-        tgn.solve_scan2map(*args, port_cfg(SolverConfig(cand_k=8)))
+    # the candidate cache is ported: cand_k=8 runs (here on an empty batch)
+    pose8, _ = tgn.solve_scan2map(*args, port_cfg(SolverConfig(cand_k=8)))
+    assert bool(torch.isfinite(pose8.t).all())
     with pytest.raises(NotImplementedError, match="knn_fn"):
         tgn.solve_scan2map(*args, cfg.solver, knn_fn=lambda *a, **k: None)
     with pytest.raises(NotImplementedError, match="axis_name"):

@@ -19,7 +19,8 @@ Tolerances, and why:
   distances 3e-6 (one ulp of distance evaluation order), ties to the first
   candidate on both sides;
 * `update_iterated` from one state and map: state within 1e-5 (m, rad,
-  m/s), n_valid equal;
+  m/s), n_valid equal; with a covariance that is not positive-definite,
+  NaN on both sides after one iteration;
 * the slice, 3 scans of tests/test_lio.py's small config on 16x720 scans:
   poses within 1e-4 m and 1e-4 per quaternion component, n_matches within
   0.5%.
@@ -177,6 +178,7 @@ def _inputs():
         mpts=mpts, spts=spts, kq=kq, kq_mask=rng.uniform(size=512) > 0.1,
         kq_moved=(kq + rng.normal(scale=0.05, size=kq.shape)).astype(np.float32),
         upd=upd, P_upd=np.eye(24, dtype=np.float32) * 1e-2,
+        P_nonpd=np.diag(np.where(np.arange(24) == 5, -1e-3, 1e-2)).astype(np.float32),
         ref_q=np.asarray([np.cos(0.01), 0, np.sin(0.01), 0], np.float32),
         ref_t=np.asarray([0.3, -0.2, 0.1], np.float32))
 
@@ -213,6 +215,9 @@ def _reference_units(d):
     out["update"] = {name: jieskf.update_iterated(d["upd"][name], d["P_upd"], pts, smap, UMAP,
                                                   UPDATES[name][0])
                      for name in UPDATES}
+    # a covariance that is not positive-definite
+    out["update"]["non_pd"] = jieskf.update_iterated(d["upd"]["cache"], d["P_nonpd"], pts, smap,
+                                                     UMAP, UPDATES["cache"][0])
     return out
 
 
@@ -250,8 +255,12 @@ def ref():
         state, res = jlio.process_lio_scan(state, p, t, m, w, CFG)
         states.append(_np(state))
         results.append(_np(res))
+    # scan 1 again from a covariance that is not positive-definite (the
+    # compiled step: the same shapes and weak types)
+    nonpd = jax.tree.map(jnp.asarray, states[1]._replace(P=-d["P_upd"]))
+    fallback = _np(jlio.process_lio_scan(nonpd, *flat[1], wins[1], CFG))
     return dict(d=d, units=units, flat=_np(flat), wins=_np(wins), gts=_np(gts),
-                states=states, results=results)
+                states=states, results=results, fallback=fallback)
 
 
 def _close(t, j, atol, rtol=0.0):
@@ -433,6 +442,48 @@ def test_update_iterated(ref, name, monkeypatch):
     else:
         _close(P, jP, 1e-5 * np.abs(jP).max(), rtol=1e-4)
         assert abs(float(x.p[2])) < 0.02  # the offset is corrected
+
+
+def test_update_iterated_non_pd_covariance(ref, monkeypatch):
+    """A P_prop that is not positive-definite: the reference's Cholesky is
+    all NaN, so its update is NaN and its loop stops after the first
+    iteration (|dx| >= eps is false for NaN). The port's is the same: NaN
+    state and covariance, one linearization, and the count and residual of
+    that first iteration."""
+    calls = []
+    real = tieskf._h_model
+    monkeypatch.setattr(tieskf, "_h_model", lambda *a, **k: calls.append(1) or real(*a, **k))
+    d = ref["d"]
+    jx, jP, jn, jrms = ref["units"]["update"]["non_pd"]
+    pts = TBatch(_t(d["spts"]), torch.ones(d["spts"].shape[0], dtype=torch.bool))
+    x, P, n, rms = tieskf.update_iterated(_tnav(d["upd"]["cache"]), _t(d["P_nonpd"]), pts,
+                                          _umap(ref), T_UMAP,
+                                          convert.config_from_reference(UPDATES["cache"][0]))
+    assert np.isnan(jx.p).all() and np.isnan(jP).all()
+    assert all(bool(torch.isnan(a).all()) for a in (x.p, x.q, x.v, P))
+    assert len(calls) == 1
+    assert int(n) == int(jn) > 500
+    _close(rms, jrms, 1e-6, rtol=1e-4)
+
+
+def test_lio_step_divergence_fallback(ref):
+    """One LIO step from the state after scan 0 with a negative-definite
+    covariance (it stays so through the propagation): on both sides the
+    update is NaN and the divergence fallback takes over (the propagated
+    pose, zero velocity and biases, P = 0.1 I), and the map grows at the
+    fallback pose."""
+    jstate = ref["states"][1]._replace(P=-ref["d"]["P_upd"])
+    jnew, jres = ref["fallback"]
+    new, res = tlio.process_lio_scan(convert.lio_state_from_numpy(jstate, "cpu"),
+                                     *_tflat(ref, 1), _twin(ref, 1), T_CFG)
+    for x, P in ((jnew.x, jnew.P), (new.x, new.P.numpy())):
+        assert not np.asarray(x.v).any() and not np.asarray(x.bg).any()
+        assert not np.asarray(x.ba).any()
+        np.testing.assert_array_equal(P, np.eye(24, dtype=np.float32) * 0.1)
+    _nav_close(new.x, jnew.x, 1e-5)
+    assert int(res.n_dropped) == int(jres.n_dropped)
+    assert int(new.map.occ.sum()) == int(np.asarray(jnew.map.occ).sum())
+    assert int(new.map.occ.sum()) > int(np.asarray(jstate.map.occ).sum())
 
 
 def _tflat(ref, i):

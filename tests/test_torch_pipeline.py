@@ -133,8 +133,9 @@ def test_port_never_imports_jax():
     """In a fresh interpreter where `jax` and the JAX package cannot be
     imported, every module of the port and chip_smoke.py import, and one CPU
     scan of each engine (odometry with octant8 maps, so the kernel module
-    too, LIO, and the slam and LIO-SAM drivers, no closure) runs, loading no
-    module of either."""
+    too, LIO, and the slam and LIO-SAM drivers, no closure) runs, and three
+    of the livox driver (through its engagement and one window scan),
+    loading no module of either."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax...` now raises ImportError
@@ -177,6 +178,11 @@ def test_port_never_imports_jax():
                               x0=circle_pose(0.0, 8.0, 0.25, device="cpu"), device="cpu")
         lsres = drv.process(scan, win)
         assert bool(torch.isfinite(lsres.pose.t).all()) and int(drv.bank.count) == 1
+        from agi_lidar_slam_torch.runtime import livox_pipeline as lp
+        ldrv = lp.LivoxDriver(lp.LivoxConfig(), init_frames=2, x0=p, device="cpu")
+        for _ in range(3):  # LO, LO and the engagement, a window scan
+            lxres = ldrv.process(scan, win)
+        assert ldrv.engaged and bool(torch.isfinite(lxres.pose.t).all())
         print("loaded:" + ",".join(sorted(m for m in sys.modules
                               if m.startswith(("jax", "agi_lidar_slam_tpu"))
                               and sys.modules[m] is not None)))
