@@ -3,7 +3,8 @@
 The port mirrors the JAX package's module paths and function names, so each
 function has an obvious counterpart. It imports torch and numpy only: nothing
 of jax and nothing of the JAX package. What it needs of the JAX package's
-jax-free modules it keeps as its own copy (`config.py`, `eval/metrics.py`).
+jax-free modules it keeps as its own copy (`config.py`, `presets.py`,
+`eval/metrics.py` with its envelopes).
 
 Entry points that make state from nothing (`init_state`, `init_lio_state`,
 `init_slam`, `init_liosam_state`, `empty_bank`, `empty_edges`, `empty_map`,
@@ -21,6 +22,7 @@ from .config import (
     PipelineConfig,
     SolverConfig,
     preset_aloam_kitti64,
+    preset_lego_vlp16,
     preset_sim16,
 )
 
@@ -30,5 +32,6 @@ __all__ = [
     "PipelineConfig",
     "SolverConfig",
     "preset_aloam_kitti64",
+    "preset_lego_vlp16",
     "preset_sim16",
 ]

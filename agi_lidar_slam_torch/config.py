@@ -89,8 +89,8 @@ class PipelineConfig:
     corner_ds_voxel: float = 0.4  # scan-to-map feature downsample leaves (m)
     surf_ds_voxel: float = 0.8
     deskew: bool = True  # constant-velocity deskew
-    two_step: bool = False  # LeGO two-step GN (not ported)
-    odometry_stage: bool = False  # A-LOAM scan-to-scan stage (not ported)
+    two_step: bool = False  # LeGO two-step GN
+    odometry_stage: bool = False  # A-LOAM scan-to-scan stage
     odom_two_tier: bool = True
     odom_map: MapConfig = MapConfig(sub_voxel=0.5, block_sub=4, log2_slots=13,
                                     neighborhood="full27")
@@ -122,4 +122,23 @@ def preset_sim16() -> PipelineConfig:
         solver=SolverConfig(n_outer=5, n_inner=2, degen_eig_thresh=10.0),
         corner_ds_voxel=0.2,
         surf_ds_voxel=0.4,
+    )
+
+
+def preset_lego_vlp16() -> PipelineConfig:
+    """LeGO-LOAM on VLP-16 (utility.h:50-103: 16x1800 image, ground removal,
+    cluster segmentation, two-step optimization)."""
+    return PipelineConfig(
+        features=FeatureConfig(
+            corners_per_sector=8, max_corners=1024, max_surfs=4096,
+            surf_voxel=0.4, segmentation=True,
+        ),
+        corner_map=MapConfig(sub_voxel=0.25, block_sub=4, log2_slots=15,
+                             neighborhood="full27"),
+        surf_map=MapConfig(sub_voxel=0.4, block_sub=2, log2_slots=16,
+                           neighborhood="full27"),
+        solver=SolverConfig(n_outer=4, n_inner=3, degen_eig_thresh=10.0),
+        corner_ds_voxel=0.2,
+        surf_ds_voxel=0.4,
+        two_step=True,
     )

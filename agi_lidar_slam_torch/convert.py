@@ -27,6 +27,7 @@ from .estimators.window_map import MarginalPrior, WindowState
 from .features.dynamic_removal import DynamicRemovalConfig
 from .features.livox import LivoxFeatureConfig
 from .features.mount_calib import MountState
+from .features.segmentation import SegmentationConfig
 from .geometry.se3 import Pose
 from .graph.keyframes import KeyframeBank
 from .graph.loop_closure import LoopConfig
@@ -35,6 +36,7 @@ from .imu.eskf import EskfNoise, NavState
 from .imu.preintegration import ImuNoise
 from .map.hash_map import HashVoxelMap
 from .pointcloud.cloud import PointBatch
+from .presets import LioSamRefParams
 from .runtime.liosam_pipeline import LioSamConfig, LioSamState
 from .runtime.lio_pipeline import LioConfig, LioState
 from .runtime.livox_pipeline import LivoxConfig, LivoxState
@@ -45,7 +47,8 @@ from .sim.world import BoxWorld
 _CONFIG_CLASSES = {cls.__name__: cls for cls in (
     config.FeatureConfig, config.MapConfig, config.SolverConfig, config.PipelineConfig,
     IeskfConfig, EskfNoise, LioConfig, LoopConfig, SlamConfig, ImuNoise, LioSamConfig,
-    LivoxConfig, LivoxFeatureConfig, DynamicRemovalConfig)}
+    LivoxConfig, LivoxFeatureConfig, DynamicRemovalConfig, SegmentationConfig,
+    LioSamRefParams)}
 
 
 def config_from_reference(obj):

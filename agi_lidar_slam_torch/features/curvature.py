@@ -3,8 +3,10 @@
 Port of agi_lidar_slam_tpu/features/curvature.py: 11-point curvature along
 each ring from a wrapped prefix sum, an occlusion / parallel-beam mask, a
 local-max mask plus per-sector top-k for corners, and voxel-downsampled
-low-curvature points for surfs. The LeGO-LOAM segmentation branch is not
-ported and raises. `extract_features` is the untimed variant (LIO-SAM's).
+low-curvature points for surfs. With `segmentation` (LeGO-LOAM), corners
+come only from valid clusters off the ground and surfs from clusters or
+ground (features/segmentation.py, at its default SegmentationConfig, as in
+the reference). `extract_features` is the untimed variant (LIO-SAM's).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from ..config import FeatureConfig
 from ..pointcloud.cloud import PointBatch, ScanGrid
 from ..pointcloud.voxel import prefix_sum, voxel_downsample_aux
+from .segmentation import segment_scan
 
 
 class ScanFeatures(NamedTuple):
@@ -94,8 +97,6 @@ def extract_features(scan: ScanGrid, cfg: FeatureConfig) -> ScanFeatures:
 
 
 def extract_features_timed(scan: ScanGrid, cfg: FeatureConfig) -> TimedFeatures:
-    if cfg.segmentation:
-        raise NotImplementedError("features.segmentation is not ported to torch")
     R, W = scan.rings, scan.width
     S = cfg.n_sectors
     Ws = W // S
@@ -105,12 +106,22 @@ def extract_features_timed(scan: ScanGrid, cfg: FeatureConfig) -> TimedFeatures:
     c, valid = curvature(scan, cfg)
     valid = valid & ~occlusion_mask(scan, cfg)
 
+    if cfg.segmentation:
+        # LeGO-LOAM: corners only from valid (big) clusters; planar candidates
+        # from ground and clusters (featureAssociation consumes the segmented
+        # cloud and the ground flags of imageProjection)
+        seg = segment_scan(scan)
+        valid_c = valid & seg.segmented & ~seg.ground
+        valid_s = valid & (seg.segmented | seg.ground)
+    else:
+        valid_c = valid_s = valid
+
     # --- corners: local-max over +-nms_window, then per-sector top-k ---------
     cmax = c
     for j in range(1, cfg.nms_window + 1):
         cmax = torch.maximum(cmax, torch.maximum(torch.roll(c, j, dims=1),
                                                  torch.roll(c, -j, dims=1)))
-    corner_cand = valid & (c > cfg.corner_thresh) & (c >= cmax)
+    corner_cand = valid_c & (c > cfg.corner_thresh) & (c >= cmax)
 
     # unpicked entries all score -1; only their order differs from the
     # reference's top_k, and their mask is False
@@ -133,7 +144,7 @@ def extract_features_timed(scan: ScanGrid, cfg: FeatureConfig) -> TimedFeatures:
     sharp_mask = (top[:, :, :ks] > 0.0).reshape(-1)
 
     # --- surfs: low-curvature, not corner-picked, voxel downsampled ----------
-    surf_cand = valid & (c < cfg.surf_thresh) & ~picked
+    surf_cand = valid_s & (c < cfg.surf_thresh) & ~picked
     surfs, surf_tau = voxel_downsample_aux(
         scan.xyz.reshape(-1, 3), surf_cand.reshape(-1), cfg.surf_voxel,
         cfg.max_surfs, aux=scan.time.reshape(-1),

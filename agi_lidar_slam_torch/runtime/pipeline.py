@@ -2,12 +2,16 @@
 (port of agi_lidar_slam_tpu/runtime/pipeline.py).
 
 One call per scan: feature extraction on the raw sweep -> feature downsample
--> scan-to-map GN with in-loop constant-velocity deskew -> final deskew ->
-map insertion -> rolling map bound. PyTorch runs it eagerly; the state lives
-on the device `init_state` put it on (cuda unless asked otherwise).
+-> (optional) scan-to-scan odometry stage -> scan-to-map GN with in-loop
+constant-velocity deskew -> final deskew -> map insertion -> rolling map
+bound. PyTorch runs it eagerly; the state lives on the device `init_state`
+put it on (cuda unless asked otherwise).
 
-Not ported, and raising: the scan-to-scan `odometry_stage` and the LeGO
-`two_step` solver. `process_scan_chunk` (a launch batcher) is not ported.
+`odometry_stage` (A-LOAM laserOdometry) registers the scan against the
+previous scan's features, inserted each scan into two throwaway maps of
+`odom_map`, and starts the scan-to-map solve from its estimate; `two_step`
+takes LeGO-LOAM's two-step solver (estimators/two_step.py) for the
+scan-to-map solve. `process_scan_chunk` (a launch batcher) is not ported.
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ import torch
 from ..config import PipelineConfig
 from ..device import default_device
 from ..estimators.gn_scan2map import GnStats, solve_scan2map
+from ..estimators.two_step import solve_scan2map_two_step
 from ..features.curvature import extract_features_timed
 from ..geometry import se3, so3
-from ..map.hash_map import HashVoxelMap, bound_map, empty_map, insert_with_stats
+from ..map.hash_map import HashVoxelMap, bound_map, empty_map, insert, insert_with_stats
 from ..pointcloud.cloud import PointBatch, ScanGrid
 from ..pointcloud.voxel import voxel_downsample_aux
 
@@ -70,10 +75,6 @@ def process_scan(state: EngineState, scan: ScanGrid,
                  cfg: PipelineConfig) -> Tuple[EngineState, ScanResult]:
     """Process one sweep; returns (new state, result). `state` is not
     modified: the maps of the new state are new tensors."""
-    if cfg.odometry_stage:
-        raise NotImplementedError("odometry_stage is not ported to torch")
-    if cfg.two_step:
-        raise NotImplementedError("two_step is not ported to torch")
     rel = se3.compose(se3.inverse(state.prev_pose), state.pose)
 
     # features come from the RAW (distorted) sweep; the solver deskews them at
@@ -88,11 +89,37 @@ def process_scan(state: EngineState, scan: ScanGrid,
         cfg.features.max_surfs, aux=feats.surf_tau,
     )
 
-    pred = se3.compose(state.pose, rel)  # constant-velocity initial guess
+    if cfg.odometry_stage:
+        # scan-to-scan refinement of the motion prediction: this scan's
+        # features against the previous scan's final-deskewed ones, inserted
+        # into two throwaway maps in the previous sensor frame. With
+        # odom_two_tier the queries are the small SHARP/FLAT tiers and the
+        # targets the previous dense tiers, the reference's asymmetric
+        # sharp -> less-sharp matching (laserOdometry.cpp:341-573). On the
+        # first scan the previous features are all masked: the maps are
+        # empty and the solve is a no-op.
+        if cfg.odom_two_tier:
+            q_c, q_s = feats.sharp, feats.flat
+            qtau_c, qtau_s = feats.sharp_tau, feats.flat_tau
+        else:
+            q_c, q_s = corners, surfs
+            qtau_c, qtau_s = tau_c, tau_s
+        dev = scan.xyz.device
+        ocmap = insert(empty_map(cfg.odom_map, dev), state.prev_corners.xyz,
+                       state.prev_corners.mask, cfg.odom_map)
+        osmap = insert(empty_map(cfg.odom_map, dev), state.prev_surfs.xyz,
+                       state.prev_surfs.mask, cfg.odom_map)
+        odsk = (qtau_c, qtau_s, se3.Pose.identity(device=dev)) if cfg.deskew else None
+        rel_opt, _ = solve_scan2map(rel, q_c, q_s, ocmap, osmap, cfg.odom_map, cfg.odom_map,
+                                    cfg.odom_solver, deskew=odsk)
+        pred = se3.compose(state.pose, rel_opt)
+    else:
+        pred = se3.compose(state.pose, rel)  # constant-velocity initial guess
     # on an empty map every eigenvalue of H is below the degeneracy threshold,
     # so the solver is a no-op and the pose stays at the prediction
     dsk = (tau_c, tau_s, state.pose) if cfg.deskew else None
-    pose_opt, stats = solve_scan2map(
+    solve = solve_scan2map_two_step if cfg.two_step else solve_scan2map
+    pose_opt, stats = solve(
         pred, corners, surfs, state.corner_map, state.surf_map,
         cfg.corner_map, cfg.surf_map, cfg.solver, deskew=dsk,
     )

@@ -43,7 +43,7 @@ Phases, each printing its own lines:
                launched 4 times per scan, healthy correspondence counts and
                residuals, ATE against the simulator's ground truth, scans/s
                (over the scans before the last, whose kernel calls are
-               captured for phase 15), then the host syncs of each scan in a
+               captured for phase 20), then the host syncs of each scan in a
                second, untimed run;
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
@@ -86,9 +86,45 @@ Phases, each printing its own lines:
  14. livox-cpu — the same sweeps with CPU tensors: poses, the engagement and
                n_dropped equal, the card's ATE under 3x the CPU's; then
                IMU_Mode 1 (the gyro deskew) on the card and the CPU;
- 15. path    — the octant-KNN kernel on the path's own inputs: the arguments
+ 15. aloam-ref — presets.preset_aloam_kitti64_ref() exactly (the scan-to-scan
+               odometry stage on every scan) over 12 HDL-64-scale scans
+               (64x1800, +2.0/-24.8 deg) of tests/test_reference_presets.py's
+               arc from rest (0.35 m and 0.03 rad a scan, world seed 2,
+               extent 30 m), through process_scan: finite poses, every
+               per-frame error under 0.35 m, the kernel 4 times a scan in the
+               scan-to-map solve and never in the odometry stage (full27
+               maps), the stage's correspondences (its GnStats, captured) from
+               the second scan on; ATE, RPE, drift, scans/s; then host syncs
+               by site and the synchronized stage split (features,
+               downsample, the odometry stage's two inserts and its solve,
+               the scan-to-map solve, insert, bound), each a run of its own;
+ 16. aloam-ref-cpu — the same scans with CPU tensors: poses within 1e-3 of
+               the card's, the card's ATE under 3x the CPU's;
+ 17. lego    — presets.preset_lego_vlp16_ref() exactly over 12 VLP-16 scans at
+               full width (16x1800, +-15 deg) of the same arc (world seed 0,
+               extent 18 m): ground, segmented pixels and clusters per scan
+               (ground and segmented non-zero), every per-frame error under
+               0.35 m, no octant launch (full27 maps); ATE, RPE, drift,
+               scans/s, host syncs by site, the stage split with segment_scan
+               on its own line; then preset_lego_vlp16() (4 x 3 two-step) over
+               the same scans under the same bound;
+ 18. lego-cpu — the same scans with CPU tensors: the pixels whose ground or
+               segmented differs between card and CPU, each flipped test
+               within 0.05 deg of its threshold; poses within 1e-3 where no
+               pixel differs, else the card's ATE under 3x the CPU's;
+ 19. presets — the other reference presets, each for 8 scans on the card and
+               then on the CPU: LioSamDriver with preset_liosam_vlp16_ref()
+               and LioSamRefParams (16x1800 sweeps of the LIO circle with
+               their IMU windows), process_lio_scan with
+               lio_config_avia_ref() (the lio phase's scans) and LivoxDriver
+               with livox_config_horizon_ref() (the livox phase's sweeps):
+               finite state, octant launches (none on full27 maps, on every
+               livox sweep), the card's ATE under 3x the CPU's;
+ 20. path    — the octant-KNN kernel on the path's own inputs: the arguments
                of every call of the last odom, LIO and livox scans of
-               phases 5, 7 and 13, captured there; each checked against the plain
+               phases 5, 7 and 13, and the first call on each map of the
+               last aloam-ref scan and horizon-ref sweep (phases 15 and 19),
+               captured there; each checked against the plain
                version, timed (device, plain, call with the wrapper), with its
                bound, its live queries, hits, distinct rows and rows read per
                tile, and the L2 figure: the hits' row bytes over the
@@ -116,18 +152,20 @@ import warnings
 import numpy as np
 import torch
 
-from agi_lidar_slam_torch import _build, preset_aloam_kitti64
+from agi_lidar_slam_torch import _build, config, preset_aloam_kitti64, presets
 from agi_lidar_slam_torch.config import MapConfig
-from agi_lidar_slam_torch.estimators import ieskf, window_map
-from agi_lidar_slam_torch.eval.metrics import ate_rmse
+from agi_lidar_slam_torch.estimators import ieskf, two_step, window_map
+from agi_lidar_slam_torch.eval.metrics import ate_rmse, kitti_drift, rpe_rmse
+from agi_lidar_slam_torch.features import curvature, segmentation
 from agi_lidar_slam_torch.geometry import se3, so3
 from agi_lidar_slam_torch.graph.keyframes import last_index, row
+from agi_lidar_slam_torch.graph.loop_closure import LoopConfig
 from agi_lidar_slam_torch.imu.eskf import NavState
 from agi_lidar_slam_torch.map.hash_map import HashVoxelMap, empty_map, insert
 from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_torch.nn import octant_knn
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid
-from agi_lidar_slam_torch.runtime import livox_pipeline, liosam_pipeline, slam_pipeline
+from agi_lidar_slam_torch.runtime import livox_pipeline, liosam_pipeline, pipeline, slam_pipeline
 from agi_lidar_slam_torch.runtime import lio_pipeline as lio
 from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose, circle_velocity
@@ -170,6 +208,21 @@ LIOSAM_ATE_BOUND = 3 * LIOSAM_CPU_ATE
 LIVOX_INIT_FRAMES = 4
 LIVOX_STAGE_SCANS = 2
 LIVOX_MODE1_SCANS = 4
+# reference presets: the arc of tests/test_reference_presets.py (0.35 m and
+# 0.03 rad of yaw a scan, from rest) and its per-frame bound; the drift
+# metric's segment lengths over this 4 m path; scans of the stage split;
+# VLP-16 rings; scans of each of the other presets on the card and the CPU
+REF_STEP, REF_YAW = 0.35, 0.03
+REF_FRAME_BOUND = 0.35
+REF_DRIFT_LENGTHS = (1.0, 2.0, 3.0)
+REF_STAGE_SCANS = 4
+LEGO_RINGS = 16
+PRESET_SCANS = 8
+# card vs CPU segmentation: a ground or cluster test may flip only where its
+# angle lies this close to its threshold (deg). One f32 ulp of a range moves
+# the cluster angle between neighbouring columns by about 1e-3 deg; a fault
+# moves it by degrees
+SEG_MARGIN_DEG = 0.05
 # kernel vs plain version: the tolerances of tests/test_vmem_knn.py (one ulp
 # of distance evaluation order; points are copied, so exact in practice)
 SQ_TOL, PTS_TOL = 3e-6, 1e-5
@@ -825,18 +878,20 @@ def phase_cpu(main: dict) -> None:
         raise AssertionError("card and CPU poses disagree")
 
 
-def lio_sweeps(n_scans: int, device):
-    """bench.py's LIO workload made on `device`: 64x1800 ScanGrids along the
-    circle (world seed 3, 48 pillars, extent 35 m, 10 Hz), exact 200 Hz IMU
-    windows, and the scan-end ground-truth positions."""
+def lio_sweeps(n_scans: int, device, rings: int = RINGS, fov_up_deg: float = 2.0,
+               fov_down_deg: float = -24.8):
+    """bench.py's LIO workload made on `device`: ScanGrids along the circle
+    (world seed 3, 48 pillars, extent 35 m, 10 Hz; 64x1800 and HDL-64's
+    field of view unless asked otherwise), exact 200 Hz IMU windows, and the
+    scan-end ground-truth positions."""
     world = default_world(seed=3, n_pillars=48, extent=35.0, device=device)
     sweeps, gt = [], []
     for i in range(n_scans):
         t0, t1 = i * LIO_SCAN_DT, (i + 1) * LIO_SCAN_DT
         p0 = circle_pose(t0, LIO_RADIUS, LIO_OMEGA, device=device)
         p1 = circle_pose(t1, LIO_RADIUS, LIO_OMEGA, device=device)
-        s = simulate_scan(world, p0, p1, rings=RINGS, width=WIDTH, fov_up_deg=2.0,
-                          fov_down_deg=-24.8, max_range=80.0, noise_std=0.01, seed=i)
+        s = simulate_scan(world, p0, p1, rings=rings, width=WIDTH, fov_up_deg=fov_up_deg,
+                          fov_down_deg=fov_down_deg, max_range=80.0, noise_std=0.01, seed=i)
         ts = t0 + (torch.arange(LIO_IMU, device=device) + 0.5) * (LIO_SCAN_DT / LIO_IMU)
         gy, ac = circle_imu(ts, LIO_RADIUS, LIO_OMEGA)
         win = lio.ImuWindow(gy, ac, torch.full((LIO_IMU,), LIO_SCAN_DT / LIO_IMU, device=device),
@@ -869,29 +924,33 @@ def synchronized_stages(times: dict, targets=None):
     """Time a step's stages on the host clock with the card synchronized
     around each: the module-level functions `targets` ((module, name) pairs;
     by default the LIO step's and the IESKF's) are wrapped while the context
-    is open, and each call's ms appended to times[name]."""
+    is open, and each call's ms appended to times[name]. A target may carry
+    a third entry, its label: a string, or a function of the call's
+    arguments that names the stage of each call."""
     targets = targets or [
         (lio, "_propagate_window"), (lio, "undistort_to_end"), (lio, "voxel_downsample"),
         (lio, "update_iterated"), (lio, "insert_with_stats"), (lio, "bound_map"),
         (ieskf, "knn_cand"), (ieskf, "_h_model"), (ieskf, "_ktab")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    saved = [(mod, name, getattr(mod, name), label) for mod, name, label in
+             ((*t, t[1]) if len(t) == 2 else t for t in targets)]
 
-    def timed(name, fn):
+    def timed(label, fn):
         def wrapper(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = fn(*a, **kw)
             torch.cuda.synchronize()
-            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            key = label(*a, **kw) if callable(label) else label
+            times.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
             return r
         return wrapper
 
-    for mod, name, fn in saved:
-        setattr(mod, name, timed(name, fn))
+    for mod, name, fn, label in saved:
+        setattr(mod, name, timed(label, fn))
     try:
         yield times
     finally:
-        for mod, name, fn in saved:
+        for mod, name, fn, _ in saved:
             setattr(mod, name, fn)
 
 
@@ -1527,6 +1586,446 @@ def phase_livox_cpu(run: dict, device) -> None:
         raise AssertionError("card and CPU IMU_Mode 1 runs disagree")
 
 
+# --- the reference presets (phases 15-19) ----------------------------------
+
+
+def ref_arc(device, world_seed: int, extent: float, rings: int, **fov):
+    """tests/test_reference_presets.py's arc from rest (0.35 m and 0.03 rad
+    of yaw a scan, noise 0.005 m) in default_world(world_seed, extent), at
+    rings x WIDTH: the scans, made on `device`, and the ground truth at each
+    sweep start (positions, and quaternions as x, y, z, w)."""
+    world = default_world(seed=world_seed, extent=extent, device=device)
+    yaw = so3.quat_exp(torch.tensor([0.0, 0.0, REF_YAW], device=device))
+    fwd = torch.tensor([REF_STEP, 0.0, 0.0], device=device)
+    q, t = so3.quat_identity(device=device), torch.zeros(3, device=device)
+    scans, gt_t, gt_q = [], [], []
+    for i in range(N_SCANS):
+        p0 = se3.Pose(q, t)
+        q = so3.quat_normalize(so3.quat_mul(q, yaw))
+        t = t + so3.quat_rotate(q, fwd)
+        scans.append(simulate_scan(world, p0, se3.Pose(q, t), rings=rings, width=WIDTH,
+                                   noise_std=0.005, seed=i, **fov))
+        gt_t.append(p0.t.cpu().numpy())
+        gt_q.append(p0.q.cpu().numpy()[[1, 2, 3, 0]])
+    return scans, np.stack(gt_t), np.stack(gt_q)
+
+
+def traj_metrics(est_t, est_q, gt_t, gt_q) -> dict:
+    """ATE (no alignment), RPE over one scan (local frames) and the KITTI
+    drift metric over REF_DRIFT_LENGTHS (this path is about 4 m long);
+    quaternions x, y, z, w."""
+    d = kitti_drift(est_t, gt_t, est_q, gt_q, lengths=REF_DRIFT_LENGTHS, step=1)
+    return {"ate": ate_rmse(est_t, gt_t, align=False),
+            "rpe": rpe_rmse(est_t, gt_t, 1, est_q, gt_q),
+            "t_rel_pct": d["t_rel_pct"], "r_deg_per_m": d["r_deg_per_m"],
+            "drift_segments": d["n_segments"]}
+
+
+def fmt_metrics(m: dict) -> str:
+    return (f"ATE={m['ate']:.4f} m, RPE={m['rpe']:.4f} m, drift {m['t_rel_pct']:.3f}% and "
+            f"{m['r_deg_per_m']:.5f} deg/m over {m['drift_segments']} segments of "
+            f"{REF_DRIFT_LENGTHS} m")
+
+
+def on_cpu(x):
+    """A tensor, or a (named) tuple of them, copied to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if hasattr(x, "_fields"):
+        return type(x)(*map(on_cpu, x))
+    return tuple(map(on_cpu, x))
+
+
+@contextlib.contextmanager
+def odometry_stage_spy(cfg, record: list):
+    """While open, each call of the odometry stage's solve (solve_scan2map
+    on cfg.odom_map, from runtime.pipeline) appends (its GnStats, the
+    octant launches it made) to `record`."""
+    real = pipeline.solve_scan2map
+
+    def spy(*a, **kw):
+        before = octant_knn.launches
+        pose, stats = real(*a, **kw)
+        if a[5] == cfg.odom_map:
+            record.append((stats, octant_knn.launches - before))
+        return pose, stats
+
+    pipeline.solve_scan2map = spy
+    try:
+        yield record
+    finally:
+        pipeline.solve_scan2map = real
+
+
+def is_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def drive(step, items, device, calls: list | None = None) -> dict:
+    """step(item) -> pose over `items` on `device`, synchronized after each:
+    the poses (quaternions as x, y, z, w), the octant launches per item and,
+    on the card, the first item's ms and items/s over those after the first
+    N_WARM and before the last (CUDA events). With `calls`, the octant calls
+    of the last item are captured there (outside the timing window), the
+    first on each map."""
+    octant_knn.launches = 0
+    per_scan, est_t, est_q = [], [], []
+    cuda = is_card(device)
+    if cuda:
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+    for i, item in enumerate(items):
+        before = octant_knn.launches
+        last = calls is not None and i == len(items) - 1
+        with (captured_knn_calls(calls) if last else contextlib.nullcontext()):
+            pose = step(item)
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize()
+        per_scan.append(octant_knn.launches - before)
+        est_t.append(pose.t.cpu().numpy())
+        est_q.append(pose.q.cpu().numpy()[[1, 2, 3, 0]])
+    est_t, est_q = np.stack(est_t), np.stack(est_q)
+    if not (np.all(np.isfinite(est_t)) and np.all(np.isfinite(est_q))):
+        raise AssertionError("non-finite pose")
+    out = {"per_scan": per_scan, "launches": octant_knn.launches, "est_t": est_t,
+           "est_q": est_q}
+    if cuda:
+        out["first_ms"] = marks[0].elapsed_time(marks[1])
+        out["scans_per_s"] = ((len(items) - 1 - N_WARM) * 1e3
+                              / marks[N_WARM].elapsed_time(marks[-2]))
+    if calls:
+        calls[:] = [c for j, c in enumerate(calls) if all(c[4] != d[4] for d in calls[:j])]
+    return out
+
+
+def run_feature_engine(cfg, scans, device, odom: list | None = None,
+                       calls: list | None = None) -> dict:
+    """process_scan from rest over `scans` on `device` (drive), with the
+    results and the final state; with `odom`, the odometry stage's GnStats
+    and launches (odometry_stage_spy)."""
+    box, results = [init_state(cfg, device)], []
+
+    def step(s):
+        box[0], res = process_scan(box[0], s, cfg)
+        results.append(res)
+        return res.pose
+
+    with (odometry_stage_spy(cfg, odom) if odom is not None else contextlib.nullcontext()):
+        out = drive(step, scans, device, calls)
+    return {**out, "state": box[0], "results": results}
+
+
+def frame_errors(run: dict, gt_t: np.ndarray, label: str) -> np.ndarray:
+    """Per-frame position errors (m) against the sweep-start ground truth;
+    raises above REF_FRAME_BOUND (the bound of tests/test_reference_presets.py)."""
+    err = np.linalg.norm(run["est_t"] - gt_t, axis=1)
+    if not err.max() < REF_FRAME_BOUND:
+        raise AssertionError(f"{label}: per-frame error {err.max():.4f} m above "
+                             f"{REF_FRAME_BOUND} m: {err.round(4).tolist()}")
+    return err
+
+
+def feature_syncs_and_stages(cfg, scans, device, targets, label: str, card: str) -> dict:
+    """The host syncs of each scan by call site (a run of its own, from
+    rest), then the synchronized stage split over REF_STAGE_SCANS scans after
+    the first N_WARM (another run from rest)."""
+    syncs, sites = [], collections.Counter()
+    state = init_state(cfg, device)
+    for s in scans:
+        with counted_syncs(syncs, sites):
+            state, _ = process_scan(state, s, cfg)
+    log(f"{label}: host syncs per scan {syncs} (sync debug mode); by call site: "
+        f"{dict(sites.most_common())}")
+    state = init_state(cfg, device)
+    for s in scans[:N_WARM]:
+        state, _ = process_scan(state, s, cfg)
+    times: dict = {}
+    with synchronized_stages(times, targets):
+        for s in scans[N_WARM:N_WARM + REF_STAGE_SCANS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = process_scan(state, s, cfg)
+            torch.cuda.synchronize()
+            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
+    stage_ms = {k: sum(v) / REF_STAGE_SCANS for k, v in times.items()}
+    log(f"{label}: synchronized stage times, ms per scan (calls per scan): " + ", ".join(
+        f"{k} {v:.2f} ({len(times[k]) / REF_STAGE_SCANS:g})" for k, v in stage_ms.items())
+        + f"; on {card}")
+    return {"syncs": syncs, "sync_sites": dict(sites), "stage_ms": stage_ms}
+
+
+def _odom_solve_label(*a, **kw) -> str:
+    return "odom_solve" if a[5].neighborhood == "full27" else "solve_scan2map"
+
+
+def phase_aloam_ref(device, card: str) -> dict:
+    """preset_aloam_kitti64_ref() exactly (the odometry stage on every scan)
+    on 12 HDL-64-scale scans (64x1800, +2.0/-24.8 deg) of the reference
+    presets' arc from rest in default_world(seed=2, extent=30), through
+    process_scan. Checks: finite poses, every per-frame error under 0.35 m,
+    the octant kernel 4 times a scan in the scan-to-map solve and never in
+    the odometry stage (its maps are full27), the stage's correspondences
+    from the second scan on. Prints ATE, RPE, drift, scans/s, then host
+    syncs by site and the synchronized stage split (runs of their own)."""
+    cfg = presets.preset_aloam_kitti64_ref()
+    scans, gt_t, gt_q = ref_arc(device, 2, 30.0, RINGS, fov_up_deg=2.0, fov_down_deg=-24.8)
+    odom, calls = [], []
+    run = run_feature_engine(cfg, scans, device, odom, calls)
+    odom_n = [n for _, n in odom]
+    s2m_n = [a - b for a, b in zip(run["per_scan"], odom_n)]
+    odom_corr = [(int(st.n_corner), int(st.n_surf)) for st, _ in odom]
+    log(f"aloam-ref: {N_SCANS} scans {RINGS}x{WIDTH} points/scan={int(scans[0].mask.sum())}; "
+        f"octant_knn launches per scan: scan-to-map {s2m_n}, odometry stage {odom_n}; "
+        f"odometry stage (n_corner, n_surf) {odom_corr}; scan-to-map n_surf "
+        f"{[int(r.stats.n_surf) for r in run['results']]}")
+    if len(odom) != N_SCANS or any(n != 0 for n in odom_n) or any(n != 4 for n in s2m_n):
+        raise AssertionError("aloam-ref: the octant kernel must run 4 times a scan in the "
+                             "scan-to-map solve and never in the odometry stage")
+    if min(c + s for c, s in odom_corr[1:]) == 0:
+        raise AssertionError(f"aloam-ref: the odometry stage found no correspondences: "
+                             f"{odom_corr}")
+    err = frame_errors(run, gt_t, "aloam-ref")
+    m = traj_metrics(run["est_t"], run["est_q"], gt_t, gt_q)
+    log(f"aloam-ref: per-frame error max {err.max():.4f} m (bound {REF_FRAME_BOUND}); "
+        f"{fmt_metrics(m)}; first scan {run['first_ms']:.1f} ms; steady "
+        f"{run['scans_per_s']:.2f} scans/s over scans {N_WARM}..{N_SCANS - 2} (CUDA events "
+        f"between synchronized scans), on {card}")
+    targets = [(pipeline, n) for n in ("extract_features_timed", "voxel_downsample_aux",
+                                       "insert_with_stats", "bound_map")] + [
+        (pipeline, "insert", "odom_insert"), (pipeline, "solve_scan2map", _odom_solve_label)]
+    prof = feature_syncs_and_stages(cfg, scans, device, targets, "aloam-ref", card)
+    return {**run, **prof, **m, "scans": scans, "gt_t": gt_t, "gt_q": gt_q, "odom": odom_corr,
+            "calls": calls}
+
+
+def compare_cpu(run: dict, cfg, label: str) -> dict:
+    """The same scans with CPU tensors: the CPU run's poses against the
+    card's and its metrics."""
+    cpu = run_feature_engine(cfg, [on_cpu(s) for s in run["scans"]], "cpu")
+    worst_t = float(np.abs(cpu["est_t"] - run["est_t"]).max())
+    wq = [(r.pose.q - g.pose.q.cpu()).abs().max() for r, g in zip(cpu["results"], run["results"])]
+    worst_q = float(max(wq))
+    m = traj_metrics(cpu["est_t"], cpu["est_q"], run["gt_t"], run["gt_q"])
+    log(f"{label}: {len(run['scans'])} scans with CPU tensors: {fmt_metrics(m)} (card ATE "
+        f"{run['ate']:.4f}, bound {3 * m['ate']:.4f}); against the card max |dt|="
+        f"{worst_t:.3g} m, max |dq|={worst_q:.3g}")
+    return {**cpu, **m, "worst_t": worst_t, "worst_q": worst_q}
+
+
+def phase_aloam_ref_cpu(run: dict) -> None:
+    cpu = compare_cpu(run, presets.preset_aloam_kitti64_ref(), "aloam-ref-cpu")
+    if cpu["worst_t"] > POSE_T_TOL or cpu["worst_q"] > POSE_Q_TOL:
+        raise AssertionError("card and CPU aloam-ref poses disagree")
+    if not run["ate"] < 3 * cpu["ate"]:
+        raise AssertionError(f"aloam-ref ATE {run['ate']:.4f} m above 3x the CPU's")
+
+
+def seg_counts(scans) -> list:
+    """segment_scan of each scan: (ground pixels, segmented pixels, distinct
+    valid-cluster labels) and the segmentation itself."""
+    out = []
+    for s in scans:
+        seg = segmentation.segment_scan(s)
+        out.append(((int(seg.ground.sum()), int(seg.segmented.sum()),
+                     int(torch.unique(seg.labels[seg.segmented]).numel())), seg))
+    return out
+
+
+def phase_lego(device, card: str) -> dict:
+    """preset_lego_vlp16_ref() exactly on 12 VLP-16 scans at full width
+    (16x1800, +-15 deg) of the reference presets' arc from rest in
+    default_world(seed=0, extent=18), through process_scan: segmentation,
+    the two-step solve, full27 maps. Checks: ground and segmented pixels in
+    every scan, every per-frame error under 0.35 m, no octant launch. Prints
+    the segmentation counts, ATE, RPE, drift, scans/s, host syncs by site
+    and the stage split (segment_scan on its own line: it runs inside the
+    feature extraction). Then preset_lego_vlp16() (the engine default, 4 x 3
+    two-step) over the same scans: finite, under the same bound."""
+    cfg = presets.preset_lego_vlp16_ref()
+    scans, gt_t, gt_q = ref_arc(device, 0, 18.0, LEGO_RINGS)
+    segs = seg_counts(scans)
+    counts = [c for c, _ in segs]
+    log(f"lego: {N_SCANS} scans {LEGO_RINGS}x{WIDTH} points/scan={int(scans[0].mask.sum())}; "
+        f"(ground, segmented, clusters) per scan {counts}")
+    if any(g == 0 or s == 0 for g, s, _ in counts):
+        raise AssertionError("lego: a scan without ground or segmented pixels")
+    run = run_feature_engine(cfg, scans, device)
+    if run["launches"] != 0:
+        raise AssertionError(f"lego: {run['launches']} octant launches on full27 maps")
+    err = frame_errors(run, gt_t, "lego")
+    m = traj_metrics(run["est_t"], run["est_q"], gt_t, gt_q)
+    log(f"lego: octant_knn launches {run['launches']}; n_corner "
+        f"{[int(r.stats.n_corner) for r in run['results']]} n_surf "
+        f"{[int(r.stats.n_surf) for r in run['results']]}; per-frame error max "
+        f"{err.max():.4f} m (bound {REF_FRAME_BOUND}); {fmt_metrics(m)}; first scan "
+        f"{run['first_ms']:.1f} ms; steady {run['scans_per_s']:.2f} scans/s over scans "
+        f"{N_WARM}..{N_SCANS - 2}, on {card}")
+    targets = [(curvature, "segment_scan")] + [(pipeline, n) for n in (
+        "extract_features_timed", "voxel_downsample_aux", "solve_scan2map_two_step",
+        "insert_with_stats", "bound_map")] + [(two_step, n) for n in (
+            "associate", "normal_equations", "_solve_subset")]
+    prof = feature_syncs_and_stages(cfg, scans, device, targets, "lego", card)
+    default = run_feature_engine(config.preset_lego_vlp16(), scans, device)
+    derr = frame_errors(default, gt_t, "lego (preset_lego_vlp16)")
+    log(f"lego: preset_lego_vlp16() over the same scans: per-frame error max "
+        f"{derr.max():.4f} m; ATE={ate_rmse(default['est_t'], gt_t, align=False):.4f} m; "
+        f"steady {default['scans_per_s']:.2f} scans/s")
+    return {**run, **prof, **m, "scans": scans, "gt_t": gt_t, "gt_q": gt_q,
+            "segs": [seg for _, seg in segs], "default_scans_per_s": default["scans_per_s"]}
+
+
+def seg_angles(scan):
+    """The angles segmentation.py tests against its thresholds, in degrees:
+    the ground test's pitch to the ring above, and the cluster criterion's
+    beta to the right and upper neighbours."""
+    xyz = scan.xyz
+    d = torch.roll(xyz, -1, dims=0) - xyz
+    pitch = torch.rad2deg(torch.atan2(d[..., 2], torch.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2)
+                                      + 1e-9))
+    r = torch.linalg.vector_norm(xyz, dim=-1)
+
+    def beta(other, alpha):
+        a = torch.full((), alpha, dtype=torch.float32, device=xyz.device)
+        d1, d2 = torch.maximum(r, other), torch.minimum(r, other)
+        return torch.rad2deg(torch.atan2(d2 * torch.sin(a), d1 - d2 * torch.cos(a) + 1e-9))
+
+    return (pitch, beta(torch.roll(r, -1, dims=1), 2.0 * np.pi / scan.width),
+            beta(torch.roll(r, -1, dims=0), np.radians(2.0)))
+
+
+def phase_lego_cpu(run: dict) -> None:
+    """The lego scans with CPU tensors. Where the card's and the CPU's ground
+    and segmented masks agree in every scan, poses within POSE_T_TOL /
+    POSE_Q_TOL; where they differ, the card's ATE under 3x the CPU's, and
+    every pixel or edge whose test flips must lie within SEG_MARGIN_DEG of
+    its threshold (rounding), else the difference is a fault."""
+    sc = segmentation.SegmentationConfig()
+    n_diff, margins = [], []
+    for s, seg in zip(run["scans"], run["segs"]):
+        h = on_cpu(s)
+        cpu = segmentation.segment_scan(h)
+        n_diff.append(int(((seg.ground.cpu() != cpu.ground)
+                           | (seg.segmented.cpu() != cpu.segmented)).sum()))
+        if not n_diff[-1]:
+            continue
+        pitch_c, *beta_c = [a.cpu() for a in seg_angles(s)]
+        pitch_h, *beta_h = seg_angles(h)
+        g_th, c_th = sc.ground_angle_deg, sc.cluster_angle_deg
+        g_flip = (pitch_c.abs() <= g_th) != (pitch_h.abs() <= g_th)
+        flips = torch.cat([(pitch_h.abs() - g_th)[g_flip & h.mask]] + [
+            (b_h - c_th)[((b_c > c_th) != (b_h > c_th)) & h.mask]
+            for b_c, b_h in zip(beta_c, beta_h)])
+        margins.append([round(float(x), 6) for x in flips])
+        if flips.numel() == 0 or float(flips.abs().max()) > SEG_MARGIN_DEG:
+            raise AssertionError(f"lego-cpu: segmentation differs in {n_diff[-1]} pixels, with "
+                                 f"threshold flips at margins {margins[-1]} (deg; limit "
+                                 f"{SEG_MARGIN_DEG})")
+    log(f"lego-cpu: pixels whose ground or segmented differs, card vs CPU, per scan {n_diff}; "
+        f"margins of the flipped tests to their thresholds (deg) {margins}")
+    cpu = compare_cpu(run, presets.preset_lego_vlp16_ref(), "lego-cpu")
+    if sum(n_diff) == 0:
+        if cpu["worst_t"] > POSE_T_TOL or cpu["worst_q"] > POSE_Q_TOL:
+            raise AssertionError("card and CPU lego poses disagree")
+    elif not run["ate"] < 3 * cpu["ate"]:
+        raise AssertionError(f"lego ATE {run['ate']:.4f} m above 3x the CPU's {cpu['ate']:.4f}")
+
+
+def liosam_ref_config():
+    """preset_liosam_vlp16_ref() with LioSamRefParams threaded into the
+    SlamConfig and LioSamConfig, as the reference runner threads them."""
+    rp = presets.LioSamRefParams()
+    slam = slam_pipeline.SlamConfig(
+        pipeline=presets.preset_liosam_vlp16_ref(), kf_dist=rp.kf_dist, kf_angle=rp.kf_angle,
+        loop=LoopConfig(radius=rp.loop_radius, min_stamp_sep=300,  # 30 s at 10 Hz
+                        submap_half=rp.loop_submap // 2, fitness_thresh=rp.loop_fitness))
+    return liosam_pipeline.LioSamConfig(slam=slam, imu_noise=rp.imu_noise())
+
+
+def preset_engines():
+    """name -> (make(device) -> (step(item) -> pose (t, q), state finite?),
+    the octant kernel serves it)."""
+    def liosam(device):
+        drv = liosam_driver(liosam_ref_config(), device)
+
+        def step(item):
+            return drv.process(*item).pose
+
+        return step, lambda: all(bool(torch.isfinite(a).all()) for a in (
+            *drv.state.engine.pose, drv.state.v, drv.state.bg, drv.state.ba, drv.state.P))
+
+    def avia(device):
+        cfg = presets.lio_config_avia_ref()
+        box = [lio_start(cfg, device)]
+
+        def step(item):
+            box[0], res = lio.process_lio_scan(box[0], *item, cfg)
+            return se3.Pose(res.x.q, res.x.p)
+
+        return step, lambda: _finite(box[0])
+
+    def horizon(device):
+        drv = livox_pipeline.LivoxDriver(
+            presets.livox_config_horizon_ref(), init_frames=LIVOX_INIT_FRAMES,
+            x0=circle_pose(0.0, LIO_RADIUS, LIO_OMEGA, device=device), device=device)
+
+        def step(item):
+            return drv.process(*item).pose
+
+        return step, lambda: _livox_finite(drv.state)
+
+    return {"liosam-ref": (liosam, False), "avia-ref": (avia, False),
+            "horizon-ref": (horizon, True)}
+
+
+def run_preset(make, items, device, calls: list | None = None) -> dict:
+    step, finite = make(device)
+    out = drive(step, items, device, calls)
+    if not finite():
+        raise AssertionError("non-finite state")
+    return out
+
+
+def phase_presets(device, lio_run: dict, livox_run: dict, card: str) -> dict:
+    """The other reference presets, each through its engine for PRESET_SCANS
+    scans on the card, then on the CPU: LioSamDriver with
+    preset_liosam_vlp16_ref() and LioSamRefParams on 16x1800 sweeps of the
+    LIO circle with their IMU windows; process_lio_scan with
+    lio_config_avia_ref() (a full27 map of 2^17 slots: the gather path, the
+    s-form gate) on the lio phase's 64x1800 scans; LivoxDriver with
+    livox_config_horizon_ref() (dynamic removal, 5 passes, the octant kernel
+    on its three class maps) on the livox phase's sweeps. Checks: finite
+    state, the octant launches (none on full27 maps, some on every livox
+    sweep), the card's ATE under 3x the CPU's."""
+    sweeps16, gt16 = lio_sweeps(PRESET_SCANS, device, rings=LEGO_RINGS, fov_up_deg=15.0,
+                                fov_down_deg=-15.0)
+    inputs = {"liosam-ref": (sweeps16, gt16),
+              "avia-ref": (lio_run["items"][:PRESET_SCANS], lio_run["gt"][:PRESET_SCANS]),
+              "horizon-ref": (livox_run["sweeps"][:PRESET_SCANS], livox_run["gt"][:PRESET_SCANS])}
+    out = {}
+    for name, (make, octant) in preset_engines().items():
+        items, gt = inputs[name]
+        calls = [] if octant else None
+        card_run = run_preset(make, items, device, calls)
+        cpu_run = run_preset(make, [on_cpu(it) for it in items], "cpu")
+        ate, ate_cpu = (ate_rmse(r["est_t"], gt, align=False) for r in (card_run, cpu_run))
+        log(f"presets {name}: {len(items)} scans; octant_knn launches per scan "
+            f"{card_run['per_scan']}; ATE={ate:.4f} m (CPU {ate_cpu:.4f}, bound "
+            f"{3 * ate_cpu:.4f}); card vs CPU max |dt|="
+            f"{float(np.abs(card_run['est_t'] - cpu_run['est_t']).max()):.3g} m; steady "
+            f"{card_run['scans_per_s']:.2f} scans/s over scans {N_WARM}..{len(items) - 2}, "
+            f"on {card}")
+        if octant and min(card_run["per_scan"]) < 2 or not octant and card_run["launches"]:
+            raise AssertionError(f"presets {name}: octant launches {card_run['per_scan']}")
+        if not ate < 3 * ate_cpu:
+            raise AssertionError(f"presets {name}: ATE {ate:.4f} m above 3x the CPU's")
+        out[name] = {"launches": card_run["launches"], "scans_per_s": card_run["scans_per_s"],
+                     "ate_m": ate, "cpu_ate_m": ate_cpu, "calls": calls}
+    return out
+
+
 def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     """The octant-KNN kernel on the arguments captured from the paths' own
     calls: exactness, device and call times against the plain version, the
@@ -1570,7 +2069,8 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
 
 
 def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
-                 liosam_run: dict, livox_run: dict, path: dict) -> dict:
+                 liosam_run: dict, livox_run: dict, aloam_run: dict, lego_run: dict,
+                 preset_runs: dict, path: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -1586,10 +2086,13 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
         {"name": "octant_knn", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/octant_knn.cu",
          "replaces": "agi_lidar_slam_tpu/nn/vmem_knn.py:150",
          "launches": sum(r["launches"] for r in (main_run, lio_run, slam_run, liosam_run,
-                                                 livox_run)),
+                                                 livox_run, aloam_run, lego_run,
+                                                 *preset_runs.values())),
          "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"],
                               "slam": slam_run["launches"], "liosam": liosam_run["launches"],
-                              "livox": livox_run["launches"]},
+                              "livox": livox_run["launches"], "aloam-ref": aloam_run["launches"],
+                              "lego-ref": lego_run["launches"],
+                              **{k: v["launches"] for k, v in preset_runs.items()}},
          "max_abs_err": max(kern["max_abs_err"], *(v["max_abs_err"] for v in path.values())),
          "ms": t["lio"]["device_ms"],
          "plain_ms": t["lio"]["plain_device_ms"], "bound_ms": t["lio"]["bound_ms"],
@@ -1602,7 +2105,12 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "slam_scans_per_s": slam_run["scans_per_s"], "slam_ate_m": slam_run["ate"],
          "liosam_scans_per_s": liosam_run["scans_per_s"], "liosam_ate_m": liosam_run["ate"],
          "livox_scans_per_s": livox_run["scans_per_s"], "livox_ate_m": livox_run["ate"],
-         "livox_launches_per_scan": livox_run["per_scan"]},
+         "livox_launches_per_scan": livox_run["per_scan"],
+         "aloam_ref_scans_per_s": aloam_run["scans_per_s"], "aloam_ref_ate_m": aloam_run["ate"],
+         "aloam_ref_launches_per_scan": aloam_run["per_scan"],
+         "lego_ref_scans_per_s": lego_run["scans_per_s"], "lego_ref_ate_m": lego_run["ate"],
+         "presets": {k: {f: x for f, x in v.items() if f != "calls"}
+                     for k, v in preset_runs.items()}},
         {"name": "scale2", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:29", "launches": prb["launches"]["scale2"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -1671,14 +2179,21 @@ def main() -> int:
     timed("liosam-cpu", phase_liosam_cpu, liosam_run)
     livox_run = timed("livox", phase_livox, device, smi)
     timed("livox-cpu", phase_livox_cpu, livox_run, device)
+    aloam_run = timed("aloam-ref", phase_aloam_ref, device, smi)
+    timed("aloam-ref-cpu", phase_aloam_ref_cpu, aloam_run)
+    lego_run = timed("lego", phase_lego, device, smi)
+    timed("lego-cpu", phase_lego_cpu, lego_run)
+    preset_runs = timed("presets", phase_presets, device, lio_run, livox_run, smi)
     path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"],
-                                      "livox": livox_run["calls"]},
+                                      "livox": livox_run["calls"],
+                                      "aloam-ref": aloam_run["calls"],
+                                      "horizon-ref": preset_runs["horizon-ref"]["calls"]},
                  prb["row_gather_sum"]["distinct"]["GB_per_s"])
     log("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
 
     print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, livox_run,
-                                  path)), flush=True)
+                                  aloam_run, lego_run, preset_runs, path)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,9 @@ import pytest
 import torch
 
 from agi_lidar_slam_torch.convert import config_from_reference, state_from_numpy, state_to_numpy
+from agi_lidar_slam_torch.estimators.gn_scan2map import solve_scan2map
+from agi_lidar_slam_torch.estimators.two_step import solve_scan2map_two_step
+from agi_lidar_slam_torch.pointcloud.cloud import PointBatch
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid as TScanGrid
 from agi_lidar_slam_torch.runtime import pipeline as tpipe
 from agi_lidar_slam_tpu.config import preset_aloam_kitti64
@@ -121,21 +124,27 @@ def test_one_step_from_carried_over_state():
 
 
 def test_unported_pipeline_branches_raise():
+    """The multi-chip hooks of both scan-to-map solvers are not ported and
+    raise (the odometry stage and the two-step solver run: their parity is
+    in tests/test_torch_presets.py and tests/test_torch_lego.py)."""
     state = tpipe.init_state(T_CFG, "cpu")
-    scan = TScanGrid(torch.zeros((4, 60, 3)), torch.zeros((4, 60), dtype=torch.bool),
-                     torch.zeros((4, 60)))
-    for field in ("odometry_stage", "two_step"):
-        with pytest.raises(NotImplementedError, match=field):
-            tpipe.process_scan(state, scan, dataclasses.replace(T_CFG, **{field: True}))
+    pts = PointBatch(torch.zeros((8, 3)), torch.ones((8,), dtype=torch.bool))
+    args = (state.pose, pts, pts, state.corner_map, state.surf_map, T_CFG.corner_map,
+            T_CFG.surf_map, T_CFG.solver)
+    for solve in (solve_scan2map, solve_scan2map_two_step):
+        for hook, value in (("axis_name", "points"), ("knn_fn", lambda *a: None)):
+            with pytest.raises(NotImplementedError, match=hook):
+                solve(*args, **{hook: value})
 
 
 def test_port_never_imports_jax():
     """In a fresh interpreter where `jax` and the JAX package cannot be
     imported, every module of the port and chip_smoke.py import, and one CPU
     scan of each engine (odometry with octant8 maps, so the kernel module
-    too, LIO, and the slam and LIO-SAM drivers, no closure) runs, and three
-    of the livox driver (through its engagement and one window scan),
-    loading no module of either."""
+    too, LIO, and the slam and LIO-SAM drivers, no closure) runs, two of the
+    A-LOAM and LeGO reference presets (the odometry stage, segmentation and
+    the two-step solve), and three of the livox driver (through its
+    engagement and one window scan), loading no module of either."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax...` now raises ImportError
@@ -157,6 +166,13 @@ def test_port_never_imports_jax():
         state, res = process_scan(init_state(cfg, "cpu"),
                                   simulate_scan(world, p, p, rings=16, width=900), cfg)
         assert bool(torch.isfinite(res.pose.t).all())
+        from agi_lidar_slam_torch.presets import preset_aloam_kitti64_ref, preset_lego_vlp16_ref
+        for ref_cfg in (preset_aloam_kitti64_ref(), preset_lego_vlp16_ref()):
+            rstate = init_state(ref_cfg, "cpu")
+            for _ in range(2):  # the odometry stage has input on the second scan
+                rstate, rres = process_scan(rstate, simulate_scan(world, p, p, rings=16,
+                                                                  width=900), ref_cfg)
+            assert bool(torch.isfinite(rres.pose.t).all())
         lcfg = lio.LioConfig()
         p1 = circle_pose(0.1, 8.0, 0.25, device="cpu")
         scan = simulate_scan(world, p, p1, rings=16, width=900)

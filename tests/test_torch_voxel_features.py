@@ -116,7 +116,28 @@ def test_extract_features_timed_16x900():
 
 
 def test_segmentation_branch_raises():
-    ts = TScanGrid(torch.ones((4, 60, 3)), torch.ones((4, 60), dtype=torch.bool),
-                   torch.zeros((4, 60)))
-    with pytest.raises(NotImplementedError, match="segmentation"):
-        tcurv.extract_features_timed(ts, dataclasses.replace(T_FEAT, segmentation=True))
+    """The segmentation branch of the feature extraction (LeGO-LOAM) no
+    longer raises: on a 4x360 grid of a noisy cylinder (a wall 10 m around
+    the sensor with a step every 30 columns, every pixel valid) it gives the
+    reference's features, masks exactly. tests/test_torch_lego.py holds it to the reference on simulator
+    scans."""
+    rng = np.random.default_rng(4)
+    R, W = 4, 360
+    az = np.linspace(0, 2 * np.pi, W, endpoint=False)
+    rad = 10.0 + rng.normal(scale=0.005, size=(R, W)) + (np.arange(W) // 30 % 2) * 0.25
+    xyz = np.stack([rad * np.cos(az), rad * np.sin(az),
+                    np.broadcast_to(np.arange(R)[:, None] * 0.4 - 1.0, (R, W))], -1)
+    xyz = xyz.astype(np.float32)
+    mask = np.ones((R, W), bool)
+    tau = np.broadcast_to(np.linspace(0, 1, W, endpoint=False, dtype=np.float32), (R, W))
+    feat = dataclasses.replace(FEAT, segmentation=True, n_sectors=2, corners_per_sector=4,
+                               max_corners=16, max_surfs=64)
+    j = jax.jit(jcurv.extract_features_timed, static_argnums=1)(
+        jcloud.ScanGrid(*map(jnp.asarray, (xyz, mask, tau))), feat)
+    t = tcurv.extract_features_timed(TScanGrid(*map(_to_t, (xyz, mask, tau))), port_cfg(feat))
+    assert int(t.surfs.mask.sum()) > 0 and int(t.corners.mask.sum()) > 0
+    for jb, tb in [(j.corners, t.corners), (j.surfs, t.surfs), (j.sharp, t.sharp),
+                   (j.flat, t.flat)]:
+        m = np.asarray(jb.mask)
+        np.testing.assert_array_equal(m, tb.mask.numpy())
+        np.testing.assert_allclose(tb.xyz.numpy()[m], np.asarray(jb.xyz)[m], rtol=0, atol=3e-5)
