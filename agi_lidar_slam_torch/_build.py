@@ -7,6 +7,9 @@ sources and flags so an edited source rebuilds. The library
 is loaded with ctypes; pointers and the stream pass as `c_void_p`, ints as
 `c_int`, floats as `c_float`. Nothing is downloaded and no prebuilt kernel
 package is used.
+
+Host C++ (the KITTI loader and LZ4 decoder, `io/native/lidar_io.cpp`) is
+built the same way with g++ (`build_host`).
 """
 
 from __future__ import annotations
@@ -109,6 +112,32 @@ def build(verbose: bool = False) -> Path:
         link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *(cmd[-2] for cmd, _ in jobs)]
         proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         _check(link, proc.returncode, proc.stdout, verbose)
+        os.replace(lib, out)  # atomic: concurrent builds race harmlessly
+    return out
+
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+
+
+def build_host(src: Path, name: str) -> Path:
+    """Compile one host C++ source with g++ into a shared library under
+    BUILD_DIR, named by a hash of the source and flags, unless it exists;
+    returns its path. Raises RuntimeError with g++'s output if the build
+    fails (nothing falls back)."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + Path(src).read_bytes())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {src} cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = Path(tmp) / "lib.so"
+        cmd = [gxx, *HOST_FLAGS, str(src), "-o", str(lib)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
         os.replace(lib, out)  # atomic: concurrent builds race harmlessly
     return out
 

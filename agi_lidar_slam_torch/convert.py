@@ -151,7 +151,9 @@ def state_to_numpy(state) -> dict:
     return walk(state)
 
 
-def world_from_numpy(lo, hi, device=None) -> BoxWorld:
-    """A BoxWorld from (M,3) box minima and maxima."""
+def world_from_numpy(lo, hi, device=None, vel=None) -> BoxWorld:
+    """A BoxWorld from (M,3) box minima and maxima, and the boxes' (M,3)
+    velocities where the world has movers."""
     return BoxWorld(_tensor(np.asarray(lo, np.float32), device),
-                    _tensor(np.asarray(hi, np.float32), device))
+                    _tensor(np.asarray(hi, np.float32), device),
+                    None if vel is None else _tensor(np.asarray(vel, np.float32), device))

@@ -10,10 +10,9 @@ each one batched combine of every element with the one `offset` before it.
 At N = 20 IMU samples that is 5 levels of a few launches each, where a
 step-by-step loop would launch 20 times as many small kernels. The grouping
 of the f32 products differs from XLA's scan, so results agree to rounding,
-not bit for bit.
-
-Not ported yet: `preintegrate_scan` (the step-by-step oracle) and
-`bias_corrected`.
+not bit for bit. `preintegrate_scan` is the step-by-step oracle of the
+batched `preintegrate`; `bias_corrected` applies the first-order bias
+correction.
 """
 
 from __future__ import annotations
@@ -142,3 +141,87 @@ def preintegrate(
     # J propagates as J' = F J from the bias-identity init, so J_N = A_N J_0:
     # the last two column blocks of A_N
     return Preintegrated(q_incl[-1], dp, dv, torch.sum(dts), C[-1], A[-1][:, 9:15], bg, ba)
+
+
+def preintegrate_scan(
+    gyro: torch.Tensor,  # (N,3) body rates
+    acc: torch.Tensor,  # (N,3) specific force
+    dts: torch.Tensor,  # (N,) sample intervals
+    mask: torch.Tensor,  # (N,) valid samples
+    bg: torch.Tensor,
+    ba: torch.Tensor,
+    noise: ImuNoise = ImuNoise(),
+) -> Preintegrated:
+    """Step-by-step reference implementation (the oracle for the batched
+    `preintegrate`; kept for the parity test and readability): one Python
+    step per sample."""
+    dev, dtype = gyro.device, gyro.dtype
+    dts = torch.where(mask, dts, torch.zeros_like(dts))
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+
+    Qc = torch.zeros((12, 12), dtype=dtype, device=dev)
+    Qc[0:3, 0:3] = eye3 * noise.gyr_n**2
+    Qc[3:6, 3:6] = eye3 * noise.acc_n**2
+    Qc[6:9, 6:9] = eye3 * noise.gyr_w**2
+    Qc[9:12, 9:12] = eye3 * noise.acc_w**2
+
+    dq = so3.quat_identity(dtype=dtype, device=dev)
+    dp = torch.zeros((3,), dtype=dtype, device=dev)
+    dv = torch.zeros((3,), dtype=dtype, device=dev)
+    T = torch.zeros((), dtype=dtype, device=dev)
+    cov = torch.zeros((15, 15), dtype=dtype, device=dev)
+    J = torch.zeros((15, 6), dtype=dtype, device=dev)
+    J[9:12, 0:3] = eye3
+    J[12:15, 3:6] = eye3
+    for w, a, dt in zip(gyro, acc, dts):
+        w_c = w - bg
+        a_c = a - ba
+        R = so3.quat_to_matrix(dq)
+        dq_step = so3.quat_exp(w_c * dt)
+
+        # midpoint-ish accel in the start frame
+        a0 = R @ a_c
+        dp_n = dp + dv * dt + 0.5 * a0 * dt * dt
+        dv_n = dv + a0 * dt
+        dq_n = so3.quat_normalize(so3.quat_mul(dq, dq_step))
+
+        # error-state transition F (15x15)
+        Rh = R @ so3.hat(a_c)
+        F = torch.eye(15, dtype=dtype, device=dev)
+        F[0:3, 0:3] = so3.exp_matrix(-w_c * dt)  # dtheta' = Exp(-w dt) dtheta - dt dbg
+        F[0:3, 9:12] = -eye3 * dt
+        F[3:6, 0:3] = -Rh * dt
+        F[3:6, 12:15] = -R * dt
+        F[6:9, 3:6] = eye3 * dt
+        F[6:9, 0:3] = -0.5 * Rh * dt * dt
+        F[6:9, 12:15] = -0.5 * R * dt * dt
+
+        G = torch.zeros((15, 12), dtype=dtype, device=dev)
+        G[0:3, 0:3] = eye3 * dt
+        G[3:6, 3:6] = R * dt
+        G[6:9, 3:6] = 0.5 * R * dt * dt
+        G[9:12, 6:9] = eye3 * dt
+        G[12:15, 9:12] = eye3 * dt
+
+        # discrete noise: Qd = G Qc G^T / dt (Qc are continuous densities)
+        cov = F @ cov @ F.T + G @ Qc @ G.T / torch.clamp(dt, min=1e-6)
+        # bias sensitivity: biases live in the 15-state, so J (15x6, columns
+        # [dbg, dba]) propagates with the same F; rows 9:15 stay identity
+        J = F @ J
+        dq, dp, dv, T = dq_n, dp_n, dv_n, T + dt
+    # J maps [dbg,dba] -> 15-dim error; downstream correction uses rows:
+    #   dtheta: J[0:3,0:3], dv: J[3:6,:], dp: J[6:9,:]
+    return Preintegrated(dq, dp, dv, T, cov, J, bg, ba)
+
+
+def bias_corrected(pre: Preintegrated, bg_new: torch.Tensor, ba_new: torch.Tensor):
+    """First-order bias correction (the reference applies the same correction
+    in Cost_NavState_PRV_Bias, ceresfunc.h:337-433): returns (dq, dp, dv) at
+    the new bias estimate without re-integration."""
+    dbg = bg_new - pre.bg
+    dba = ba_new - pre.ba
+    d = torch.cat([dbg, dba])
+    dq = so3.quat_mul(pre.dq, so3.quat_exp(pre.J_bias[0:3, 0:3] @ dbg))
+    dv = pre.dv + pre.J_bias[3:6] @ d
+    dp = pre.dp + pre.J_bias[6:9] @ d
+    return so3.quat_normalize(dq), dp, dv

@@ -11,7 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import default_device
+from ..device import default_device, host_to_device
 
 
 class ScanGrid(NamedTuple):
@@ -56,7 +56,8 @@ def grid_from_unorganized(
     device=None,
 ) -> ScanGrid:
     """Host-side: bin an unorganized cloud (e.g. KITTI .bin) into a ring-major
-    grid by elevation/azimuth, returned as tensors on `device` (default: cuda)."""
+    grid by elevation/azimuth, returned as tensors on `device` (default: cuda;
+    copied there without a host sync, `host_to_device`)."""
     device = default_device(device)
     xyz = np.asarray(xyz, dtype=np.float32)
     r = np.linalg.norm(xyz, axis=-1)
@@ -78,5 +79,9 @@ def grid_from_unorganized(
     time = np.broadcast_to(
         (np.arange(width, dtype=np.float32) / width)[None, :], (rings, width)
     ).copy()
-    return ScanGrid(torch.as_tensor(grid, device=device), torch.as_tensor(mask, device=device),
-                    torch.as_tensor(time, device=device))
+    return ScanGrid(host_to_device(grid, device), host_to_device(mask, device),
+                    host_to_device(time, device))
+
+
+def flatten_grid(scan: ScanGrid) -> PointBatch:
+    return PointBatch(scan.xyz.reshape(-1, 3), scan.mask.reshape(-1))

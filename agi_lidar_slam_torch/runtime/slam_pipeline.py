@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig, preset_aloam_kitti64
-from ..device import default_device
+from ..device import default_device, host_to_device
 from ..geometry import se3, so3
 from ..graph.keyframes import (KeyframeBank, add_keyframe, empty_bank, last_index, row,
                                should_add)
@@ -183,10 +183,7 @@ def _gps_fix(gps, cfg: SlamConfig, device):
     from the host goes to the card through a pinned copy, without waiting: a
     copy from pageable memory synchronizes."""
     pos, w = gps if isinstance(gps, tuple) else (gps, cfg.gps_w_trans)
-    pos = torch.as_tensor(pos, dtype=torch.float32)
-    if device.type == "cuda" and pos.device.type == "cpu":
-        pos = pos.pin_memory()
-    return pos.to(device, non_blocking=True), w
+    return host_to_device(torch.as_tensor(pos, dtype=torch.float32), device), w
 
 
 class LoopFlag:

@@ -43,7 +43,7 @@ Phases, each printing its own lines:
                launched 4 times per scan, healthy correspondence counts and
                residuals, ATE against the simulator's ground truth, scans/s
                (over the scans before the last, whose kernel calls are
-               captured for phase 20), then the host syncs of each scan in a
+               captured for phase 23), then the host syncs of each scan in a
                second, untimed run;
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
@@ -120,7 +120,32 @@ Phases, each printing its own lines:
                with livox_config_horizon_ref() (the livox phase's sweeps):
                finite state, octant launches (none on full27 maps, on every
                livox sweep), the card's ATE under 3x the CPU's;
- 20. path    — the octant-KNN kernel on the path's own inputs: the arguments
+ 20. runner-kitti — the port's runner (tools/run_slam.main, in this process)
+               on a KITTI sequence written from 12 HDL-64-scale sweeps
+               (64x1800) of run_slam's arc in its default world (0.35 m and
+               0.03 rad a sweep, reached from rest over 4 sweeps), read by
+               the C++ loader (its g++ build timed), --preset aloam: with
+               --device cpu first (its ATE sets the gate at 3x; per-frame
+               errors under 0.35 m), then on the card with the gate, the
+               trajectory, metrics, summary and map bundle: exit 0, the
+               kernel 4 times a scan, poses within 1e-3 m of the CPU's, exit
+               2 on an impossible envelope; scans/s through the runner beside
+               process_scan on the loader's grids from memory, the loader's
+               wait, host syncs a scan through the runner and the engine's;
+ 21. runner-bag — a ROS1 bag (the port's bag_write) of 12 LIO-circle sweeps
+               at 64x1800, started from rest (still for a sweep, the yaw
+               rate ramped up over 4), with 200 Hz IMU and 1 Hz NavSatFix,
+               through the
+               runner on the card and with --device cpu: --engine liosam
+               with navsat GPS fusion (GPS factors used, the kernel 4 times a
+               scan), --engine lio --save-map, then --load-map from that map
+               with a seed 0.22 m off (the first pose within 0.05 m of the
+               mapping run's); card and CPU poses within 1e-3 m;
+ 22. runner-sim — the runner's simulator at 64x1800, 12 frames: the city
+               world with 4 movers through --engine slam and the corridor
+               through --engine lio, on the card and the CPU: the card's ATE
+               under 3x the CPU's;
+ 23. path    — the octant-KNN kernel on the path's own inputs: the arguments
                of every call of the last odom, LIO and livox scans of
                phases 5, 7 and 13, and the first call on each map of the
                last aloam-ref scan and horizon-ref sweep (phases 15 and 19),
@@ -143,9 +168,11 @@ import ctypes
 import dataclasses
 import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -171,6 +198,7 @@ from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose, circle_velocity
 from agi_lidar_slam_torch.sim.world import default_world, simulate_scan
 from agi_lidar_slam_torch.tools import probe
+from agi_lidar_slam_torch.tools import run_slam as runner_cli
 
 SEED = 0
 RINGS, WIDTH = 64, 1800  # KITTI HDL-64 scan scale
@@ -260,22 +288,25 @@ def cuda_ms(fn, reps: int = 25) -> float:
 
 def device_ms(fn, reps: int = 20) -> float | None:
     """Device time (ms) of one fn() call: every kernel, copy and fill it puts
-    on the card, summed by torch.profiler over `reps` calls. None if the
-    profiler recorded no device activity (then it is not measured).
+    on the card, summed by torch.profiler over `reps` calls. None if three
+    profiles recorded no device activity (then it is not measured).
 
     cuda_ms times a call from the host's side: for a kernel this short that
     is mostly the wrapper's host work, so this is the kernel's own time."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(3):  # a profile now and then records no device activity: profile again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
 
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -2026,6 +2057,324 @@ def phase_presets(device, lio_run: dict, livox_run: dict, card: str) -> dict:
     return out
 
 
+def runner(argv: list, label: str) -> dict:
+    """tools/run_slam.run(argv) in this process, its stdout captured: the
+    run's record (exit code, trajectory, summary, loader figures), the
+    octant launches of the run (the count set to 0 just before it) and the
+    host seconds; the summary lines are logged."""
+    buf = io.StringIO()
+    octant_knn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = runner_cli.run(argv)
+    out.update(launches=octant_knn.launches, seconds=time.perf_counter() - t0)
+    keep = [line for line in buf.getvalue().splitlines() if line.startswith(
+        ("processed", "ATE", "GATE", "gps", "loader", "loops", "relocalizing"))]
+    log(f"{label}: exit {out['rc']}, octant launches {out['launches']}, {out['seconds']:.1f} s; "
+        + " | ".join(keep))
+    return out
+
+
+def runner_pair(card_run: dict, cpu_run: dict, label: str) -> float:
+    """The card's poses against the CPU's (max |dt|, m); raises above
+    POSE_T_TOL."""
+    worst = float(np.abs(card_run["est"] - cpu_run["est"]).max())
+    log(f"{label}: card vs CPU poses max |dt|={worst:.3g} m over {len(card_run['est'])} scans")
+    if worst > POSE_T_TOL:
+        raise AssertionError(f"{label}: card and CPU poses disagree by {worst:.3g} m")
+    return worst
+
+
+# run_slam's sim arc (REF_STEP, REF_YAW a sweep, the step and yaw of
+# tools/run_slam.py's arena arc) in its default world, reached from rest over
+# RUNNER_RAMP sweeps: from rest at the full step preset_aloam_kitti64() flags
+# every scan degenerate and stays at the origin, in the port and in the JAX
+# package alike; over a 4-sweep ramp it tracks (measured: per-frame errors
+# at most 0.043 m on the card and the CPU, NVIDIA H100 80GB HBM3, 700.00 W)
+RUNNER_RAMP = 4
+
+
+def runner_arc(device):
+    """12 sweeps (64x1800, HDL-64's field of view, noise 0.005 m) of
+    run_slam's arc in default_world(seed=0), its step and yaw reached over
+    the first RUNNER_RAMP sweeps: the sweeps, their start poses and the
+    start positions as numpy."""
+    world = default_world(seed=0, device=device)
+    q, t = so3.quat_identity(device=device), torch.zeros(3, device=device)
+    scans, poses = [], []
+    for i in range(N_SCANS):
+        f = min(i + 1, RUNNER_RAMP) / RUNNER_RAMP
+        poses.append(se3.Pose(q, t))
+        q = so3.quat_normalize(so3.quat_mul(q, so3.quat_exp(
+            torch.tensor([0.0, 0.0, REF_YAW * f], device=device))))
+        t = t + so3.quat_rotate(q, torch.tensor([REF_STEP * f, 0.0, 0.0], device=device))
+        scans.append(simulate_scan(world, poses[-1], se3.Pose(q, t), rings=RINGS, width=WIDTH,
+                                   fov_up_deg=2.0, fov_down_deg=-24.8, noise_std=0.005, seed=i))
+    return scans, poses, np.stack([p.t.cpu().numpy() for p in poses])
+
+
+def phase_runner_kitti(device, card: str) -> dict:
+    """The runner's --kitti path at full width: 12 sweeps of run_slam's own
+    sim arc (0.35 m and 0.03 rad a sweep, reached from rest over 4 sweeps,
+    in its default world default_world(seed=0); runner_arc) at 64x1800 with
+    HDL-64's field of view, written as
+    a KITTI sequence (velodyne/*.bin, calib.txt, times.txt, poses/07.txt),
+    read by the port's C++ loader (its g++ build timed here) and run with
+    --preset aloam: first with --device cpu, whose ATE sets the gate (3x)
+    and whose per-frame errors must stay under 0.35 m (the preset tracks),
+    then on the card with the gate, the trajectory,
+    metrics, summary and map bundle. Checks: exit 0, the octant kernel 4
+    times a scan, the card's poses within 1e-3 m of the CPU's, exit 2 on an
+    impossible envelope. Prints scans/s through the runner (loader
+    included) beside the engine fed the loader's grids from memory, the
+    loader's wait, and host syncs a scan through the runner beside the
+    engine's own."""
+    from agi_lidar_slam_torch.io import kitti, native_loader
+    from agi_lidar_slam_torch.sim.recordings import write_kitti_sequence
+
+    before = set(_build.BUILD_DIR.glob("liblidar_io-*.so"))
+    t0 = time.perf_counter()
+    native_loader.build_native()
+    build_s = time.perf_counter() - t0
+    built = not before
+    scans, poses, gt_t = runner_arc(device)
+    with tempfile.TemporaryDirectory() as root:
+        seq = write_kitti_sequence(root, scans, poses)
+        out = {k: os.path.join(root, k) for k in ("traj.txt", "m.jsonl", "s.json", "maps")}
+        base = ["--kitti", seq, "--preset", "aloam", "--width", str(WIDTH)]
+        cpu = runner(base + ["--device", "cpu"], "runner-kitti-cpu")
+        cpu_err = np.linalg.norm(cpu["est"] - gt_t, axis=1)
+        if cpu["rc"] != 0 or not cpu_err.max() < REF_FRAME_BOUND:
+            raise AssertionError(f"runner-kitti-cpu: exit {cpu['rc']}, per-frame errors "
+                                 f"{cpu_err.round(4).tolist()} (bound {REF_FRAME_BOUND} m)")
+        gate = (f"ate_m={3 * cpu['summary']['ate_m']:.6g},"
+                f"ate_raw_m={3 * cpu['summary']['ate_raw_m']:.6g}")
+        run = runner(base + ["--device", "cuda", "--traj-out", out["traj.txt"], "--metrics",
+                             out["m.jsonl"], "--summary-out", out["s.json"], "--save-map",
+                             out["maps"], "--gate", gate], "runner-kitti")
+        if run["rc"] != 0:
+            raise AssertionError(f"runner-kitti: exit {run['rc']} with --gate {gate}")
+        if run["launches"] != 4 * N_SCANS:
+            raise AssertionError(f"runner-kitti: {run['launches']} octant launches, expected "
+                                 f"{4 * N_SCANS}")
+        worst = runner_pair(run, cpu, "runner-kitti")
+        recs = [json.loads(line) for line in open(out["m.jsonl"])]
+        traj = np.loadtxt(out["traj.txt"]).reshape(-1, 3, 4)
+        summary = json.load(open(out["s.json"]))
+        n_map = len(open(os.path.join(out["maps"], "GlobalMap.pcd")).readlines()) - 11
+        if len(recs) != N_SCANS or len(traj) != N_SCANS or summary["n_scans"] != N_SCANS:
+            raise AssertionError("runner-kitti: the metrics, trajectory or summary lack scans")
+        fail = runner(base + ["--device", "cuda", "--max-scans", "3", "--gate", "ate_m=1e-9"],
+                      "runner-kitti-gate")
+        if fail["rc"] != 2:
+            raise AssertionError(f"runner-kitti: exit {fail['rc']} on an impossible envelope")
+        # the same engine fed the loader's grids from memory, host clock
+        paths = kitti.scan_paths(seq)
+        with native_loader.NativeKittiLoader(paths, rings=64, width=WIDTH,
+                                             device=device) as loader:
+            grids = list(loader)
+        cfg = preset_aloam_kitti64()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = init_state(cfg, device)
+        for g in grids:
+            state, res = process_scan(state, g, cfg)
+            res.pose.t.tolist()
+        mem_scans_per_s = len(grids) / (time.perf_counter() - t0)
+        # host syncs: the whole runner under sync debug mode, then the engine
+        syncs, sites = [], collections.Counter()
+        with counted_syncs(syncs, sites):
+            with contextlib.redirect_stdout(io.StringIO()):
+                runner_cli.run(base + ["--device", "cuda"])
+        eng_syncs, eng_sites = [], collections.Counter()
+        state = init_state(cfg, device)
+        for g in grids:
+            with counted_syncs(eng_syncs, eng_sites):
+                state, _ = process_scan(state, g, cfg)
+    runner_syncs = syncs[0] / N_SCANS
+    extra = {k: v for k, v in sites.items() if k not in eng_sites}
+    log(f"runner-kitti: loader built {'here' if built else '(already built)'} in {build_s:.2f} s "
+        f"(g++); {n_map} map points written; ATE {run['summary']['ate_m']:.4f} m aligned, "
+        f"{run['summary']['ate_raw_m']:.4f} m raw (CPU {cpu['summary']['ate_m']:.4f}, "
+        f"{cpu['summary']['ate_raw_m']:.4f}; gate {gate})")
+    log(f"runner-kitti: {run['summary']['scans_per_s']:.2f} scans/s through the runner (loader, "
+        f"grids, engine, one host read a scan; host clock over {N_SCANS} scans) against "
+        f"{mem_scans_per_s:.2f} scans/s of process_scan on the loader's grids from memory; the "
+        f"loader's consumer waited {run['loader_wait_s']:.3f} s of {run['wall_s']:.2f} s; on "
+        f"{card}")
+    log(f"runner-kitti: host syncs a scan through the runner {runner_syncs:.2f} ({syncs[0]} over "
+        f"{N_SCANS} scans and the set-up) against the engine's own {eng_syncs}; sites outside "
+        f"the engine's: {extra}")
+    return {"launches": run["launches"], "scans_per_s": run["summary"]["scans_per_s"],
+            "mem_scans_per_s": mem_scans_per_s, "loader_wait_s": run["loader_wait_s"],
+            "wall_s": run["wall_s"], "loader_build_s": build_s, "loader_built": built,
+            "syncs_per_scan": runner_syncs, "engine_syncs": eng_syncs, "worst_t": worst,
+            "ate_m": run["summary"]["ate_m"], "cpu_ate_m": cpu["summary"]["ate_m"]}
+
+
+# the runner's bag: the LIO circle started from rest, as a recording for
+# LIO-SAM and LIO starts (both engines begin at rest, as the reference's
+# do): still for BAG_STILL s, then the yaw rate ramps to LIO_OMEGA over
+# BAG_RAMP s; NavSatFix at 1 Hz over the 1.2 s of sweeps; the
+# relocalization seed's offset from the first sweep's pose in the saved map
+BAG_STILL, BAG_RAMP = 0.1, 0.4
+BAG_FIX_TIMES = (0.0, 1.0)
+RELOC_SEED = "0.2,-0.1,0,2"
+RELOC_BOUND = 0.05  # m: the relocalized first pose against the mapping run's
+
+
+def bag_circle(t):
+    """The yaw angle, rate and acceleration (numpy, t in s) of the LIO circle
+    started from rest: 0 until BAG_STILL, a constant angular acceleration
+    for BAG_RAMP s, then LIO_OMEGA."""
+    t = np.asarray(t, np.float64)
+    alpha = LIO_OMEGA / BAG_RAMP
+    u = np.clip(t - BAG_STILL, 0.0, BAG_RAMP)
+    th = 0.5 * alpha * u**2 + LIO_OMEGA * np.maximum(t - BAG_STILL - BAG_RAMP, 0.0)
+    ramp = (t > BAG_STILL) & (t <= BAG_STILL + BAG_RAMP)
+    return th, alpha * u, np.where(ramp, alpha, 0.0)
+
+
+def bag_pose(t: float, device) -> se3.Pose:
+    th = float(bag_circle(t)[0])
+    q = so3.quat_exp(torch.tensor([0.0, 0.0, th], device=device))
+    return se3.Pose(q, torch.tensor([LIO_RADIUS * np.sin(th), LIO_RADIUS * (1 - np.cos(th)), 0.0],
+                                    dtype=torch.float32, device=device))
+
+
+def bag_sweep_ends(device) -> list:
+    return [bag_pose((i + 1) * LIO_SCAN_DT, device).t for i in range(N_SCANS)]
+
+
+def bag_sweeps(device):
+    """12 sweeps (64x1800, world seed 3, 48 pillars, extent 35 m) along
+    bag_circle, each with its exact 200 Hz IMU (body rate theta', specific
+    force (R theta'', R theta'^2, G) in the body frame of a CCW circle of
+    radius LIO_RADIUS), and the GPS fixes at BAG_FIX_TIMES."""
+    world = default_world(seed=3, n_pillars=48, extent=35.0, device=device)
+
+    def pose(t):
+        return bag_pose(t, device)
+
+    scans, imu = [], []
+    for i in range(N_SCANS):
+        t0, t1 = i * LIO_SCAN_DT, (i + 1) * LIO_SCAN_DT
+        scans.append(simulate_scan(world, pose(t0), pose(t1), rings=RINGS, width=WIDTH,
+                                   fov_up_deg=2.0, fov_down_deg=-24.8, max_range=80.0,
+                                   noise_std=0.01, seed=i))
+        ts = t0 + (np.arange(LIO_IMU) + 0.5) * (LIO_SCAN_DT / LIO_IMU)
+        _, w, dw = bag_circle(ts)
+        z = np.zeros_like(ts)
+        imu.append((np.stack([z, z, w], 1).astype(np.float32),
+                    np.stack([LIO_RADIUS * dw, LIO_RADIUS * w**2, z + 9.81], 1).astype(np.float32)))
+    return scans, imu, [(t, pose(t).t) for t in BAG_FIX_TIMES]
+
+
+def phase_runner_bag(device, card: str) -> dict:
+    """The runner's --bag path at full width: 12 sweeps of the LIO circle
+    started from rest (bag_sweeps: 64x1800, world seed 3; still for a
+    sweep, then the yaw rate ramps up over 4) written with the port's
+    bag_write as PointCloud2
+    (ring and time fields), 200 Hz Imu and 1 Hz NavSatFix. Runs, each on the
+    card and then with --device cpu: --engine liosam with --gps-topic and
+    --navsat (the fixes through the navsat ESKF and the covariance gate);
+    --engine lio --save-map; --engine lio --load-map from that map with a
+    seed 0.22 m and 2 deg off. Checks: exit 0, the octant kernel 4 times a
+    scan under LIO-SAM, GPS factors used, the relocalized first pose within
+    0.05 m of the mapping run's first pose, card and CPU within 1e-3 m."""
+    from agi_lidar_slam_torch.sim.recordings import write_sweep_bag
+
+    scans, imu, fixes = bag_sweeps(device)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        bag = os.path.join(root, "circle.bag")
+        t0 = time.perf_counter()
+        write_sweep_bag(bag, scans, imu, fixes=fixes)
+        log(f"runner-bag: {N_SCANS} sweeps {RINGS}x{WIDTH}, {N_SCANS * LIO_IMU} IMU samples, "
+            f"{len(fixes)} fixes: {os.path.getsize(bag) / 2**20:.1f} MiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        base = ["--bag", bag, "--rings", str(RINGS), "--width", str(WIDTH)]
+        runs = {
+            "liosam": ["--engine", "liosam", "--gps-topic", "/gps/fix", "--navsat"],
+            "lio-map": ["--engine", "lio", "--save-map", os.path.join(root, "{dev}")],
+            "lio-reloc": ["--engine", "lio", "--load-map", os.path.join(root, "{dev}"),
+                          "--init-pose", RELOC_SEED],
+        }
+        for name, extra in runs.items():
+            pair = {}
+            for dev in ("cuda", "cpu"):
+                argv = base + [a.replace("{dev}", dev) for a in extra] + ["--device", dev]
+                pair[dev] = runner(argv, f"runner-bag {name}" + ("" if dev == "cuda" else "-cpu"))
+                if pair[dev]["rc"] != 0:
+                    raise AssertionError(f"runner-bag {name} ({dev}): exit {pair[dev]['rc']}")
+            pair["worst_t"] = runner_pair(pair["cuda"], pair["cpu"], f"runner-bag {name}")
+            out[name] = pair
+    ls = out["liosam"]["cuda"]
+    if ls["launches"] != 4 * N_SCANS:
+        raise AssertionError(f"runner-bag liosam: {ls['launches']} octant launches, expected "
+                             f"{4 * N_SCANS}")
+    if not ls["n_gps_used"] > 0 or out["liosam"]["cpu"]["n_gps_used"] != ls["n_gps_used"]:
+        raise AssertionError(f"runner-bag liosam: GPS factors used {ls['n_gps_used']} (card), "
+                             f"{out['liosam']['cpu']['n_gps_used']} (CPU)")
+    for dev in ("cuda", "cpu"):
+        d = float(np.linalg.norm(out["lio-reloc"][dev]["est"][0] - out["lio-map"][dev]["est"][0]))
+        log(f"runner-bag ({dev}): relocalized first pose {out['lio-reloc'][dev]['est'][0].round(4)}"
+            f", {d:.4f} m from the mapping run's first pose (seed {RELOC_SEED}; bound "
+            f"{RELOC_BOUND} m)")
+        if not d < RELOC_BOUND:
+            raise AssertionError(f"runner-bag: the relocalized run ({dev}) did not start in the "
+                                 f"saved map ({d:.4f} m)")
+    gt_end = np.stack([p.cpu().numpy() for p in bag_sweep_ends(device)])
+    log("runner-bag: max position error against the circle at each sweep's end: " + ", ".join(
+        f"{k} {float(np.linalg.norm(v['cuda']['est'] - gt_end, axis=1).max()):.4f} m"
+        for k, v in out.items()))
+    log("runner-bag: scans/s through the runner (bag decode, grids, engine; host clock): "
+        + ", ".join(f"{k} {v['cuda']['summary']['scans_per_s']:.2f}" for k, v in out.items())
+        + f"; on {card}")
+    return {"launches": sum(v["cuda"]["launches"] for v in out.values()),
+            "n_gps_used": ls["n_gps_used"],
+            **{f"{k}_scans_per_s": v["cuda"]["summary"]["scans_per_s"] for k, v in out.items()},
+            **{f"{k}_worst_t": v["worst_t"] for k, v in out.items()}}
+
+
+def phase_runner_sim(device, card: str) -> dict:
+    """The runner's --sim path at full width (64x1800, 12 frames): the city
+    world with 4 movers through --engine slam, and the corridor through
+    --engine lio on its exact analytic IMU; each on the card and with
+    --device cpu (the simulator draws its noise on each device, so the
+    sweeps differ by noise). Checks: exit 0, the octant kernel 4 times a
+    scan under slam and at least once a scan under lio, the card's ATE
+    (aligned and raw) under 3x the CPU run's."""
+    common = ["--sim", "--sim-rings", str(RINGS), "--sim-width", str(WIDTH),
+              "--frames", str(N_SCANS)]
+    runs = {"city-slam": ["--world", "city", "--movers", "4", "--engine", "slam"],
+            "corridor-lio": ["--world", "corridor", "--engine", "lio"]}
+    out = {}
+    for name, extra in runs.items():
+        card_run = runner(common + extra + ["--device", "cuda"], f"runner-sim {name}")
+        cpu_run = runner(common + extra + ["--device", "cpu"], f"runner-sim {name}-cpu")
+        if card_run["rc"] or cpu_run["rc"]:
+            raise AssertionError(f"runner-sim {name}: exit {card_run['rc']}, {cpu_run['rc']}")
+        per_scan = card_run["launches"] / N_SCANS
+        if (name == "city-slam" and card_run["launches"] != 4 * N_SCANS
+                or per_scan < 1):
+            raise AssertionError(f"runner-sim {name}: {card_run['launches']} octant launches")
+        for key in ("ate_m", "ate_raw_m"):
+            a, b = card_run["summary"][key], cpu_run["summary"][key]
+            if not a < 3 * b:
+                raise AssertionError(f"runner-sim {name}: {key} {a:.4f} m above 3x the CPU's "
+                                     f"{b:.4f} m")
+        log(f"runner-sim {name}: ATE {card_run['summary']['ate_m']:.4f} m aligned, "
+            f"{card_run['summary']['ate_raw_m']:.4f} m raw (CPU {cpu_run['summary']['ate_m']:.4f},"
+            f" {cpu_run['summary']['ate_raw_m']:.4f}); {card_run['summary']['scans_per_s']:.2f} "
+            f"scans/s through the runner (simulated sweeps in memory; host clock, the stage "
+            f"synchronized), on {card}")
+        out[name] = {"launches": card_run["launches"], "ate_m": card_run["summary"]["ate_m"],
+                     "cpu_ate_m": cpu_run["summary"]["ate_m"],
+                     "scans_per_s": card_run["summary"]["scans_per_s"]}
+    return {"launches": sum(v["launches"] for v in out.values()), **out}
+
+
 def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     """The octant-KNN kernel on the arguments captured from the paths' own
     calls: exactness, device and call times against the plain version, the
@@ -2070,7 +2419,7 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
 
 def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
                  liosam_run: dict, livox_run: dict, aloam_run: dict, lego_run: dict,
-                 preset_runs: dict, path: dict) -> dict:
+                 preset_runs: dict, runner_runs: dict, path: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -2087,12 +2436,13 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "replaces": "agi_lidar_slam_tpu/nn/vmem_knn.py:150",
          "launches": sum(r["launches"] for r in (main_run, lio_run, slam_run, liosam_run,
                                                  livox_run, aloam_run, lego_run,
-                                                 *preset_runs.values())),
+                                                 *preset_runs.values(), *runner_runs.values())),
          "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"],
                               "slam": slam_run["launches"], "liosam": liosam_run["launches"],
                               "livox": livox_run["launches"], "aloam-ref": aloam_run["launches"],
                               "lego-ref": lego_run["launches"],
-                              **{k: v["launches"] for k, v in preset_runs.items()}},
+                              **{k: v["launches"] for k, v in preset_runs.items()},
+                              **{k: v["launches"] for k, v in runner_runs.items()}},
          "max_abs_err": max(kern["max_abs_err"], *(v["max_abs_err"] for v in path.values())),
          "ms": t["lio"]["device_ms"],
          "plain_ms": t["lio"]["plain_device_ms"], "bound_ms": t["lio"]["bound_ms"],
@@ -2110,7 +2460,8 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "aloam_ref_launches_per_scan": aloam_run["per_scan"],
          "lego_ref_scans_per_s": lego_run["scans_per_s"], "lego_ref_ate_m": lego_run["ate"],
          "presets": {k: {f: x for f, x in v.items() if f != "calls"}
-                     for k, v in preset_runs.items()}},
+                     for k, v in preset_runs.items()},
+         "runner": runner_runs},
         {"name": "scale2", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/probe.cu",
          "replaces": "tools/pallas_probe.py:29", "launches": prb["launches"]["scale2"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -2184,6 +2535,9 @@ def main() -> int:
     lego_run = timed("lego", phase_lego, device, smi)
     timed("lego-cpu", phase_lego_cpu, lego_run)
     preset_runs = timed("presets", phase_presets, device, lio_run, livox_run, smi)
+    runner_runs = {name: timed(name, fn, device, smi) for name, fn in (
+        ("runner-kitti", phase_runner_kitti), ("runner-bag", phase_runner_bag),
+        ("runner-sim", phase_runner_sim))}
     path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"],
                                       "livox": livox_run["calls"],
                                       "aloam-ref": aloam_run["calls"],
@@ -2193,7 +2547,8 @@ def main() -> int:
         + f"; total {sum(seconds.values()):.1f}")
 
     print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, livox_run,
-                                  aloam_run, lego_run, preset_runs, path)), flush=True)
+                                  aloam_run, lego_run, preset_runs, runner_runs, path)),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

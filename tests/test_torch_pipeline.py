@@ -143,8 +143,9 @@ def test_port_never_imports_jax():
     scan of each engine (odometry with octant8 maps, so the kernel module
     too, LIO, and the slam and LIO-SAM drivers, no closure) runs, two of the
     A-LOAM and LeGO reference presets (the odometry stage, segmentation and
-    the two-step solve), and three of the livox driver (through its
-    engagement and one window scan), loading no module of either."""
+    the two-step solve), three of the livox driver (through its engagement
+    and one window scan) and two simulator sweeps through the runner
+    (tools/run_slam.main), loading no module of either."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax...` now raises ImportError
@@ -199,6 +200,9 @@ def test_port_never_imports_jax():
         for _ in range(3):  # LO, LO and the engagement, a window scan
             lxres = ldrv.process(scan, win)
         assert ldrv.engaged and bool(torch.isfinite(lxres.pose.t).all())
+        from agi_lidar_slam_torch.tools import run_slam
+        run = run_slam.run(["--sim", "--frames", "2", "--device", "cpu"])
+        assert run["rc"] == 0 and run["est"].shape == (2, 3)
         print("loaded:" + ",".join(sorted(m for m in sys.modules
                               if m.startswith(("jax", "agi_lidar_slam_tpu"))
                               and sys.modules[m] is not None)))
