@@ -12,7 +12,13 @@ than `cand_refresh` since the probe, which is read on the host once per pass
 after the first (the reference's `lax.cond`). A smaller cand_k runs plain
 `associate`, as in the reference.
 
-Not ported here, and raising: the multi-chip hooks (`knn_fn`, `axis_name`).
+The multi-device hooks: `knn_fn` replaces the map lookup (the slot-sharded
+map's merged KNN, parallel/map_shard.py), and `group` (the reference's
+`axis_name`) names the process group over which the feature point axis is
+sharded: each rank associates and linearizes its own block of points and
+the 6x6 normal equations complete with one all_reduce per inner iteration
+(parallel/distributed.allsum). With `knn_fn=None` association goes through
+`nn.knn.knn` (the octant-KNN kernel on octant8 maps) whatever the group.
 
 Perturbation convention: see geometry/se3.py — right rotation perturbation,
 additive translation: dw/dtheta = -R [p]x, dw/dt = I.
@@ -29,7 +35,8 @@ from ..fit.geometry_fit import fit_lines, fit_planes
 from ..geometry import se3, so3
 from ..map.hash_map import HashVoxelMap
 from ..map.planar import build_ktab
-from ..nn.knn import knn, knn_cand, knn_reselect
+from ..nn.knn import _first_k, knn, knn_cand, knn_reselect, make_cand
+from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
 
 
@@ -82,19 +89,25 @@ def associate(
     cfg: SolverConfig,
     corner_ktab: torch.Tensor | None = None,
     surf_ktab: torch.Tensor | None = None,
+    knn_fn=None,
 ) -> Correspondences:
-    """One association pass: KNN + line/plane fits at the current pose."""
+    """One association pass: KNN + line/plane fits at the current pose.
+
+    `knn_fn` replaces the map lookup (the signature of nn.knn.knn): the hook
+    through which the slot-sharded map (parallel/map_shard.sharded_knn)
+    serves association."""
+    lookup = knn if knn_fn is None else knn_fn
     R = so3.quat_to_matrix(pose.q)
     k = cfg.k_neighbors
 
     cw = corners.xyz @ R.T + pose.t
-    nc = knn(corner_map, cw, corners.mask, k, cmap_cfg, ktab=corner_ktab)
+    nc = lookup(corner_map, cw, corners.mask, k, cmap_cfg, ktab=corner_ktab)
     gate_c = nc.sq_dists[:, k - 1] < cfg.corner_gate_sq
     line = fit_lines(nc.points, nc.valid, cfg.line_eig_ratio)
     ok_c = corners.mask & gate_c & line.ok
 
     sw = surfs.xyz @ R.T + pose.t
-    ns = knn(surf_map, sw, surfs.mask, k, smap_cfg, ktab=surf_ktab)
+    ns = lookup(surf_map, sw, surfs.mask, k, smap_cfg, ktab=surf_ktab)
     gate_s = ns.sq_dists[:, k - 1] < cfg.surf_gate_sq
     plane = fit_planes(ns.points, ns.valid, cfg.plane_tol)
     ok_s = surfs.mask & gate_s & plane.ok
@@ -115,6 +128,7 @@ def associate_cached(
     cand: tuple | None = None,
     corner_ktab: torch.Tensor | None = None,
     surf_ktab: torch.Tensor | None = None,
+    knn_fn=None,
 ) -> tuple[Correspondences, tuple]:
     """Association with a candidate cache (SolverConfig.cand_k). Returns
     (correspondences, cache); the cache is (corner CandCache, surf CandCache,
@@ -124,17 +138,26 @@ def associate_cached(
     first k are this pass's neighbours. Later calls re-rank the cached
     candidates at the updated pose (knn_reselect, no map traffic), unless the
     pose moved more than cfg.cand_refresh since the probe: then it probes
-    again. That test is one host read. Fits and gates are those of
-    `associate`."""
+    again. That test is one host read; it reads the pose, which every rank
+    of a sharded solve holds alike, so all ranks decide alike. With
+    `knn_fn` the probe goes through it and the cache is made from its
+    result (make_cand). Fits and gates are those of `associate`."""
     R = so3.quat_to_matrix(pose.q)
     k = cfg.k_neighbors
     cw = corners.xyz @ R.T + pose.t
     sw = surfs.xyz @ R.T + pose.t
 
     if cand is None or float(_cache_motion(pose, cand[2], cand[3])) > cfg.cand_refresh:
-        cc, nc = knn_cand(corner_map, cw, corners.mask, cfg.cand_k, cmap_cfg, ktab=corner_ktab,
-                          k=k)
-        cs, ns = knn_cand(surf_map, sw, surfs.mask, cfg.cand_k, smap_cfg, ktab=surf_ktab, k=k)
+        if knn_fn is None:
+            cc, nc = knn_cand(corner_map, cw, corners.mask, cfg.cand_k, cmap_cfg,
+                              ktab=corner_ktab, k=k)
+            cs, ns = knn_cand(surf_map, sw, surfs.mask, cfg.cand_k, smap_cfg, ktab=surf_ktab,
+                              k=k)
+        else:
+            fc = knn_fn(corner_map, cw, corners.mask, cfg.cand_k, cmap_cfg, ktab=corner_ktab)
+            fs = knn_fn(surf_map, sw, surfs.mask, cfg.cand_k, smap_cfg, ktab=surf_ktab)
+            cc, nc = make_cand(fc), _first_k(fc, k)
+            cs, ns = make_cand(fs), _first_k(fs, k)
         cand = (cc, cs, pose.q, pose.t)
     else:
         nc = knn_reselect(cand[0], cw, corners.mask, k)
@@ -226,7 +249,7 @@ def solve_scan2map(
     smap_cfg: MapConfig,
     cfg: SolverConfig,
     deskew: tuple | None = None,
-    axis_name: str | None = None,
+    group=None,
     knn_fn=None,
 ):
     """Iterated GN from initial guess pose0. Returns (pose, GnStats).
@@ -234,14 +257,18 @@ def solve_scan2map(
     `deskew = (corner_tau, surf_tau, prev_pose)` re-deskews the raw feature
     points at every OUTER pass with the current relative-motion estimate
     rel = prev_pose^-1 . pose (A-LOAM's TransformToStart on the live
-    optimization variables, laserOdometry.cpp:124-145)."""
-    if axis_name is not None:
-        raise NotImplementedError("solve_scan2map(axis_name=...) is not ported to torch")
-    if knn_fn is not None:
-        raise NotImplementedError("solve_scan2map(knn_fn=...) is not ported to torch")
+    optimization variables, laserOdometry.cpp:124-145).
+
+    `group` (a ProcessGroup; the reference's `axis_name`): the feature point
+    axis is sharded over its ranks. Each rank passes its own block of
+    corners, surfs and deskew times; H, g, the correspondence counts, the
+    square sum and the row count complete with one all_reduce per inner
+    iteration, and every rank takes the same step. `knn_fn` replaces the
+    map lookup (see `associate`). group=None and knn_fn=None run the
+    single-process code exactly."""
     use_cache = cfg.cand_k >= cfg.k_neighbors
-    corner_ktab = _ktab(corner_map, cmap_cfg)
-    surf_ktab = _ktab(surf_map, smap_cfg)
+    corner_ktab = _ktab(corner_map, cmap_cfg) if knn_fn is None else None
+    surf_ktab = _ktab(surf_map, smap_cfg) if knn_fn is None else None
 
     def deskewed(pose):
         if deskew is None:
@@ -262,12 +289,14 @@ def solve_scan2map(
         c_i, s_i = deskewed(pose)
         if use_cache:
             corr, cand = associate_cached(pose, c_i, s_i, corner_map, surf_map, cmap_cfg,
-                                          smap_cfg, cfg, cand, corner_ktab, surf_ktab)
+                                          smap_cfg, cfg, cand, corner_ktab, surf_ktab,
+                                          knn_fn=knn_fn)
         else:
             corr = associate(pose, c_i, s_i, corner_map, surf_map, cmap_cfg, smap_cfg, cfg,
-                             corner_ktab, surf_ktab)
+                             corner_ktab, surf_ktab, knn_fn=knn_fn)
         for _ in range(cfg.n_inner):
             H, g, (n_c, n_s, sq, n_rows) = normal_equations(pose, c_i, s_i, corr, cfg)
+            H, g, n_c, n_s, sq, n_rows = allsum((H, g, n_c, n_s, sq, n_rows), group)
             delta, degen = solve_delta(H, g, cfg)
             pose = se3.boxplus(pose, delta)
             rms = torch.sqrt(sq / torch.clamp(n_rows, min=1.0))

@@ -16,6 +16,15 @@ Host reads: the iteration loop reads |dx| back once per finished iteration
 while another is allowed (the reference's `lax.while_loop` exit test, which
 also ends the loop on a NaN step), and the candidate-cache staleness test
 reads the motion once per update (the reference's post-loop `lax.cond`).
+
+`group` (the reference's `axis_name`): the measurement point axis is sharded
+over the ranks of a process group. Each rank associates and linearizes its
+own block of the downsampled cloud, and the 12x12 HtH, the 12-dim Htr, the
+valid count and the residual square sum complete with one all_reduce per
+iteration (the reference's OpenMP loop, esekfom.hpp:114-117). Both host
+reads test quantities every rank holds alike (the step from the reduced
+sums, the state it moved), so every rank leaves the loop and re-probes at
+the same iteration, and the collectives stay in step.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from ..geometry import se3, so3
 from ..imu.eskf import DIM, NavState, boxminus, boxplus
 from ..map.hash_map import HashVoxelMap
 from ..nn.knn import knn, knn_cand, knn_reselect
+from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
 from .gn_scan2map import _cache_motion, _ktab
 from .linalg import cho_solve, cholesky
@@ -96,13 +106,14 @@ def _h_model(x: NavState, pts_l: PointBatch, smap: HashVoxelMap, map_cfg: MapCon
 
 def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
                     smap: HashVoxelMap, map_cfg: MapConfig, cfg: IeskfConfig = IeskfConfig(),
-                    axis_name: str | None = None):
+                    group=None):
     """Iterated measurement update. Returns (x, P, n_valid, final residual rms).
 
     The last iteration's (HtH, n_ok, sum r^2) feed the covariance update, as
-    the reference forms K and P from the loop's last linearization."""
-    if axis_name is not None:
-        raise NotImplementedError("update_iterated(axis_name=...) is not ported to torch")
+    the reference forms K and P from the loop's last linearization. `group`
+    (the reference's `axis_name`): `pts_l` is this rank's block of the
+    cloud and the reductions complete over the group (module docstring);
+    None runs the single-process code."""
     dev, dt = P_prop.device, P_prop.dtype
     eye = torch.eye(DIM, dtype=dt, device=dev)
     inv_R = 1.0 / cfg.meas_noise
@@ -122,8 +133,9 @@ def update_iterated(x_prop: NavState, P_prop: torch.Tensor, pts_l: PointBatch,
 
     def reduce_h(x, cand):
         H, r, ok = _h_model(x, pts_l, smap, map_cfg, cfg, cand=cand, ktab=ktab)
-        return (H.T @ H) * inv_R, (H.T @ r) * inv_R, torch.sum(ok, dtype=torch.int32), \
-            torch.sum(r * r)
+        HtH, Htr, n_ok, sq = allsum((H.T @ H, H.T @ r, torch.sum(ok, dtype=torch.int32),
+                                     torch.sum(r * r)), group)
+        return HtH * inv_R, Htr * inv_R, n_ok, sq
 
     def solve_step(x, HtH, Htr):
         """One GN/KF step: A dx = -(Htr + P^-1 (x [-] x_prop))."""

@@ -16,7 +16,9 @@ dtheta_y, dtheta_z, dt_x, dt_y, dt_z):
 Every inner iteration takes the surf step, then the corner step linearized
 at the pose after it. Each step's 3x3 eigh reads back to the host on CUDA.
 
-Not ported here, and raising: the multi-chip hooks (`knn_fn`, `axis_name`).
+`group` (the reference's `axis_name`) and `knn_fn` shard the point axis and
+the map exactly as in gn_scan2map.solve_scan2map: each step's partial sums
+complete with one all_reduce.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from ..config import MapConfig, SolverConfig
 from ..geometry import se3
 from ..map.hash_map import HashVoxelMap
+from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
 from .gn_scan2map import GnStats, _ktab, associate, normal_equations
 
@@ -67,7 +70,7 @@ def solve_scan2map_two_step(
     smap_cfg: MapConfig,
     cfg: SolverConfig,
     deskew: tuple | None = None,
-    axis_name: str | None = None,
+    group=None,
     knn_fn=None,
 ):
     """Iterated two-step GN (LeGO configuration). Returns (pose, GnStats) of
@@ -75,13 +78,10 @@ def solve_scan2map_two_step(
 
     `deskew = (corner_tau, surf_tau, prev_pose)` re-deskews the raw feature
     points at every outer pass with the current motion estimate, as in
-    solve_scan2map."""
-    if axis_name is not None:
-        raise NotImplementedError("solve_scan2map_two_step(axis_name=...) is not ported to torch")
-    if knn_fn is not None:
-        raise NotImplementedError("solve_scan2map_two_step(knn_fn=...) is not ported to torch")
-    corner_ktab = _ktab(corner_map, cmap_cfg)
-    surf_ktab = _ktab(surf_map, smap_cfg)
+    solve_scan2map. `group` (the reference's `axis_name`) and `knn_fn`: see
+    solve_scan2map; group=None and knn_fn=None run the single-process code."""
+    corner_ktab = _ktab(corner_map, cmap_cfg) if knn_fn is None else None
+    surf_ktab = _ktab(surf_map, smap_cfg) if knn_fn is None else None
     pose = pose0
     dev = pose0.t.device
     stats = GnStats(torch.zeros((), dtype=torch.int32, device=dev),
@@ -97,7 +97,7 @@ def solve_scan2map_two_step(
         else:
             c_i, s_i = corners, surfs
         corr = associate(pose, c_i, s_i, corner_map, surf_map, cmap_cfg, smap_cfg, cfg,
-                         corner_ktab, surf_ktab)
+                         corner_ktab, surf_ktab, knn_fn=knn_fn)
         # row selection through the correspondence masks (normal_equations
         # weights rows by ok_c / ok_s)
         corr_surf = corr._replace(ok_c=torch.zeros_like(corr.ok_c))
@@ -105,10 +105,12 @@ def solve_scan2map_two_step(
         for _ in range(cfg.n_inner):
             # step 1: surf rows only -> (roll, pitch, z)
             Hs, gs, (_, n_s, sq_s, nr_s) = normal_equations(pose, c_i, s_i, corr_surf, cfg)
+            Hs, gs, n_s, sq_s, nr_s = allsum((Hs, gs, n_s, sq_s, nr_s), group)
             d_s, degen_s = _solve_subset(Hs, gs, _SURF_IDX, cfg.degen_eig_thresh)
             pose = se3.boxplus(pose, d_s)
             # step 2: corner rows only -> (yaw, x, y), at the pose after step 1
             Hc, gc, (n_c, _, sq_c, nr_c) = normal_equations(pose, c_i, s_i, corr_corner, cfg)
+            Hc, gc, n_c, sq_c, nr_c = allsum((Hc, gc, n_c, sq_c, nr_c), group)
             d_c, degen_c = _solve_subset(Hc, gc, _CORNER_IDX, cfg.degen_eig_thresh)
             pose = se3.boxplus(pose, d_c)
             rms = torch.sqrt((sq_s + sq_c) / torch.clamp(nr_s + nr_c, min=1.0))

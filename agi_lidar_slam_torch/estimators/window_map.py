@@ -22,7 +22,11 @@ matrix that is not positive-definite, decided on the device
 (`estimators/linalg.py`), and the Schur complement inverts with `inv_ex`:
 no host read in either.
 
-Not ported here, and raising: the multi-chip hooks (`knn_fn`, `axis_name`).
+The multi-device hooks: `knn_fn` replaces the map lookup, and `group` (the
+reference's `axis_name`) shards each frame's point axes over a process
+group: the per-frame lidar blocks, summed over each rank's points, complete
+with one all_reduce before the IMU factors, which every rank adds alike (the
+reference's std::thread residual builders, Estimator.cpp:1019-1050).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from ..fit.geometry_fit import fit_lines, fit_planes
 from ..geometry import se3, so3
 from ..imu.preintegration import Preintegrated
 from ..map.hash_map import HashVoxelMap
-from ..nn.knn import knn, knn_cand, knn_reselect
+from ..nn.knn import _first_k, knn, knn_cand, knn_reselect, make_cand
+from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
 from .gn_scan2map import (Correspondences, _huber_sqrt_weight, _ktab, associate,
                           normal_equations)
@@ -251,6 +256,7 @@ def associate_window(
     other_ktab: torch.Tensor | None = None,
     nonfeature_gate_sq: float = 4.0,
     nonfeature_tol: float = 0.5,
+    knn_fn=None,
     cand: tuple | None = None,
 ) -> Tuple[Correspondences, PlaneCorr | None, tuple | None]:
     """One association pass for all window frames, one KNN call per feature
@@ -260,7 +266,9 @@ def associate_window(
     candidates and returns them as the cache (plus the probe's window
     poses); passed back as `cand`, later passes re-rank them (knn_reselect)
     unless the worst-moved frame moved more than cand_refresh since the
-    probe, a test read on the host."""
+    probe, a test read on the host. `knn_fn` replaces the map lookup (the
+    signature of nn.knn.knn); its probe's cache is made with make_cand."""
+    lookup = knn if knn_fn is None else knn_fn
     F, Nc = corners.mask.shape
     Ns = surfs.mask.shape[1]
     k = cfg.k_neighbors
@@ -273,10 +281,10 @@ def associate_window(
     no = None
 
     if cfg.cand_k < k:
-        nc = knn(corner_map, cw, cm, k, cmap_cfg, ktab=corner_ktab)
-        ns = knn(surf_map, sw, sm, k, smap_cfg, ktab=surf_ktab)
+        nc = lookup(corner_map, cw, cm, k, cmap_cfg, ktab=corner_ktab)
+        ns = lookup(surf_map, sw, sm, k, smap_cfg, ktab=surf_ktab)
         if use_others:
-            no = knn(other_map, ow, om, k, omap_cfg, ktab=other_ktab)
+            no = lookup(other_map, ow, om, k, omap_cfg, ktab=other_ktab)
         cand = None
     else:
         stale = cand is None
@@ -287,11 +295,18 @@ def associate_window(
             stale = float(moved) > cfg.cand_refresh
         if stale:
             kq = cfg.cand_k
-            cc, nc = knn_cand(corner_map, cw, cm, kq, cmap_cfg, ktab=corner_ktab, k=k)
-            cs, ns = knn_cand(surf_map, sw, sm, kq, smap_cfg, ktab=surf_ktab, k=k)
+
+            def probe(m, w, mask, mcfg, ktab):
+                if knn_fn is None:
+                    return knn_cand(m, w, mask, kq, mcfg, ktab=ktab, k=k)
+                full = knn_fn(m, w, mask, kq, mcfg, ktab=ktab)
+                return make_cand(full), _first_k(full, k)
+
+            cc, nc = probe(corner_map, cw, cm, cmap_cfg, corner_ktab)
+            cs, ns = probe(surf_map, sw, sm, smap_cfg, surf_ktab)
             co = None
             if use_others:
-                co, no = knn_cand(other_map, ow, om, kq, omap_cfg, ktab=other_ktab, k=k)
+                co, no = probe(other_map, ow, om, omap_cfg, other_ktab)
             cand = (cc, cs, co, ws.q, ws.t)
         else:
             nc = knn_reselect(cand[0], cw, cm, k)
@@ -335,10 +350,12 @@ def _window_normal_eq(ws: WindowState, corners: PointBatch, surfs: PointBatch,
                       corr: Correspondences, ocorr: PlaneCorr | None,
                       others: PointBatch | None, preints: Preintegrated, sqrtW: torch.Tensor,
                       grav: torch.Tensor, cfg: SolverConfig, lidar_weight: float,
-                      nonfeature_weight: float):
+                      nonfeature_weight: float, group=None):
     """Dense (H, g, weighted square sum) of the window at `ws` with fixed
     correspondences: analytic 6x6 lidar blocks per frame and the closed-form
-    Jacobians of the 15-row IMU factors."""
+    Jacobians of the 15-row IMU factors. With `group` (the reference's
+    `axis_name`) the lidar sums are over this rank's points and complete
+    with one all_reduce; the IMU factors are added after it."""
     F = ws.frames
     D = F * D_FRAME
     H = torch.zeros((D, D), dtype=ws.t.dtype, device=ws.t.device)
@@ -358,6 +375,7 @@ def _window_normal_eq(ws: WindowState, corners: PointBatch, surfs: PointBatch,
         o = f * D_FRAME
         H[o:o + 6, o:o + 6] += Hf
         g[o:o + 6] += gf
+    H, g, sq = allsum((H, g, sq), group)
     for f in range(F - 1):
         pre_f = _frame(preints, f)
         r0 = sqrtW[f] @ _imu_residual(ws, f, pre_f, grav)
@@ -385,37 +403,43 @@ def solve_window(
     other_map: HashVoxelMap | None = None,
     omap_cfg: MapConfig | None = None,
     nonfeature_weight: float = 10.0,
-    axis_name: str | None = None,
+    group=None,
     knn_fn=None,
 ) -> Tuple[WindowState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Windowed MAP solve (LIO-Livox Estimate). Returns (state, final residual
     norm, H_meas, b_meas): the measurement information (sum J^T J and
     -J^T r over the lidar and IMU factors, no prior, no damping) linearized
     at the returned state with the final pass's correspondences, which is
-    what marginalization consumes."""
-    if axis_name is not None:
-        raise NotImplementedError("solve_window(axis_name=...) is not ported to torch")
-    if knn_fn is not None:
-        raise NotImplementedError("solve_window(knn_fn=...) is not ported to torch")
+    what marginalization consumes.
+
+    `group` (the reference's `axis_name`): the (F, N) feature arrays hold
+    this rank's block of each frame's points; the normal equations complete
+    over the group, and the prior, damping and solve run alike on every
+    rank. `knn_fn` replaces the map lookup. Both None: the single-process
+    code."""
     D = ws.frames * D_FRAME
     sqrtW = _sqrt_info(preints.cov)  # (F-1,15,15)
     use_others = others is not None and other_map is not None
+
+    def ktab(m, mcfg):
+        return _ktab(m, mcfg) if knn_fn is None else None
+
     okw = dict(others=others, other_map=other_map, omap_cfg=omap_cfg,
-               other_ktab=_ktab(other_map, omap_cfg)) if use_others else {}
-    ctab, stab = _ktab(corner_map, cmap_cfg), _ktab(surf_map, smap_cfg)
+               other_ktab=ktab(other_map, omap_cfg)) if use_others else {}
+    ctab, stab = ktab(corner_map, cmap_cfg), ktab(surf_map, smap_cfg)
     eye = torch.eye(D, dtype=ws.t.dtype, device=ws.t.device)
 
     def linearize(ws_c, corr, ocorr):
         return _window_normal_eq(ws_c, corners, surfs, corr, ocorr,
                                  others if use_others else None, preints, sqrtW, grav, cfg,
-                                 lidar_weight, nonfeature_weight)
+                                 lidar_weight, nonfeature_weight, group=group)
 
     rn = torch.zeros((), dtype=ws.t.dtype, device=ws.t.device)
     cand = None
     for _ in range(cfg.n_outer):
         corr, ocorr, cand = associate_window(ws, corners, surfs, corner_map, surf_map,
                                              cmap_cfg, smap_cfg, cfg, corner_ktab=ctab,
-                                             surf_ktab=stab, cand=cand, **okw)
+                                             surf_ktab=stab, knn_fn=knn_fn, cand=cand, **okw)
         for _ in range(cfg.n_inner):
             H, g, sq = linearize(ws, corr, ocorr)
             # marginalization prior: r_p = H_prior (x [-] x0) - b residual form

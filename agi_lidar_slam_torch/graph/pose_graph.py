@@ -16,8 +16,11 @@ device that freezes the iterate once the stop test holds, so no iteration
 reads anything back to the host. The scatters are `index_add_`, which on
 CUDA adds with atomics, in another order than the reference's.
 
-Not ported, and raising: `sharded_solve_pose_graph` (the edge-sharded
-multi-device solve).
+`sharded_solve_pose_graph` splits the edge axis over the ranks of a device
+mesh's group: every per-node reduction (g, the block diagonal, each Hv)
+completes with one all_reduce, and the node state and the CG iterations run
+alike on every rank. All 30 CG iterations run on every rank, so the
+collectives line up.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..device import default_device
 from ..geometry import se3, so3
+from ..parallel.distributed import allsum, rank_and_size
 from .keyframes import write_row
 
 
@@ -172,7 +176,10 @@ def _cg(A, b: torch.Tensor, M, maxiter: int, tol: float = 1e-5) -> torch.Tensor:
 
 
 def _solve_body(q0, t0, n_nodes, edges: EdgeSet, n_gn_iters, n_cg_iters, anchor_weight,
-                damping):
+                damping, group=None):
+    """GN body. With `group` (the reference's `axis_name`) `edges` is this
+    rank's block of the edge axis and the per-node sums (g, D, every Hv)
+    complete over the group; None runs the single-process code."""
     K = q0.shape[0]
     dev, dt = q0.device, q0.dtype
     live = torch.arange(K, device=dev) < n_nodes
@@ -190,15 +197,17 @@ def _solve_body(q0, t0, n_nodes, edges: EdgeSet, n_gn_iters, n_cg_iters, anchor_
                       torch.einsum("eri,er->ei", Jj, wr))
         Hii = torch.einsum("eri,er,erj->eij", Ji, w, Ji)
         Hjj = torch.einsum("eri,er,erj->eij", Jj, w, Jj)
-        D = _node_sum(K, ei, ej, Hii, Hjj) + diag[..., None] * eye6
+        g, D = allsum((g, _node_sum(K, ei, ej, Hii, Hjj)), group)
+        D = D + diag[..., None] * eye6
         # inv_ex: torch.linalg.inv checks its info on the host
         D_inv = torch.linalg.inv_ex(D + 1e-6 * eye6).inverse
 
         def Hv(v, Ji=Ji, Jj=Jj, w=w):
             Jv = (torch.einsum("erc,ec->er", Ji, v[ei])
                   + torch.einsum("erc,ec->er", Jj, v[ej])) * w
-            return (_node_sum(K, ei, ej, torch.einsum("erc,er->ec", Ji, Jv),
-                              torch.einsum("erc,er->ec", Jj, Jv)) + diag * v)
+            out, = allsum((_node_sum(K, ei, ej, torch.einsum("erc,er->ec", Ji, Jv),
+                                     torch.einsum("erc,er->ec", Jj, Jv)),), group)
+            return out + diag * v
 
         def Mv(v, D_inv=D_inv):
             return torch.einsum("kij,kj->ki", D_inv, v)
@@ -225,9 +234,33 @@ def solve_pose_graph(
     return se3.Pose(q, t)
 
 
-def sharded_solve_pose_graph(*args, **kwargs):
-    """The edge-sharded multi-device solve of the reference: not ported."""
-    raise NotImplementedError("sharded_solve_pose_graph is not ported to torch")
+def sharded_solve_pose_graph(
+    mesh,
+    poses: se3.Pose,
+    n_nodes: torch.Tensor,
+    edges: EdgeSet,
+    axis: str = "dp",
+    n_gn_iters: int = 5,
+    n_cg_iters: int = 30,
+    anchor_weight: float = 1e6,
+    damping: float = 1e-3,
+) -> se3.Pose:
+    """Distributed graph solve over the `axis` group of a DeviceMesh: every
+    rank holds the whole graph as every other does (poses, count, the full
+    edge set) and solves with its contiguous block of the edge axis, the
+    per-node reductions summed over the group. Every rank returns the same
+    poses, equal to `solve_pose_graph`'s up to the order of the sums. The
+    edge capacity must divide by the group's size, else ValueError."""
+    group = mesh.get_group(axis)
+    rank, n = rank_and_size(group)
+    E = edges.capacity
+    if E % n:
+        raise ValueError(f"edge capacity {E} does not divide over {n} ranks")
+    b = E // n
+    local = EdgeSet(*(x[rank * b:(rank + 1) * b] for x in edges[:-1]), edges.count)
+    q, t = _solve_body(poses.q, poses.t, n_nodes, local, n_gn_iters, n_cg_iters,
+                       anchor_weight, damping, group=group)
+    return se3.Pose(q, t)
 
 
 def between_measurement(pose_i: se3.Pose, pose_j: se3.Pose) -> se3.Pose:

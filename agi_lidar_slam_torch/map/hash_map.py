@@ -206,16 +206,21 @@ def lookup_dedup(keys: torch.Tensor, bc: torch.Tensor, valid: torch.Tensor,
 
 
 def insert_with_stats(m: HashVoxelMap, xyz: torch.Tensor, mask: torch.Tensor,
-                      cfg: MapConfig) -> Tuple[HashVoxelMap, torch.Tensor]:
+                      cfg: MapConfig, row0: int = 0) -> Tuple[HashVoxelMap, torch.Tensor]:
     """Insert a padded point batch (N,3)+(N,) into the map; returns
     (new map, n_dropped). The input map is not modified.
 
     Existing sub-voxel occupants win; among same-batch duplicates the lowest
     point index wins (scatter-min). Points whose probe chain is full are
-    dropped and counted."""
+    dropped and counted.
+
+    The map's points and occupancy may hold only the slot rows [row0, row0 +
+    their rows) beside the whole keys: one rank's part of a slot-sharded map
+    (parallel/map_shard.py). The claims are resolved on the whole keys, and
+    points that fall in rows held elsewhere are left to their holders."""
     N = xyz.shape[0]
-    B = m.bucket
-    dump = m.n_rows - 1
+    rows, B = m.points.shape[0], m.bucket
+    virtual = rows * B  # one row past the held ones, cut off at the end
     bc, sub_id = block_coords(xyz, cfg)
     pt_idx = torch.arange(N, dtype=torch.int32, device=xyz.device)
 
@@ -223,23 +228,24 @@ def insert_with_stats(m: HashVoxelMap, xyz: torch.Tensor, mask: torch.Tensor,
 
     placed = mask & (slot >= 0)
     n_dropped = torch.sum((mask & (slot < 0)).to(torch.int32))
-    dump_flat = torch.full_like(slot, dump * B)
-    flat = torch.where(placed, slot * B + sub_id, dump_flat).long()
-    occ_flat = m.occ.reshape(-1)
-    writeable = placed & ~occ_flat[flat]
-    flat_w = torch.where(writeable, flat, dump_flat.long())
-    owner = torch.full((m.n_rows * B,), N, dtype=torch.int32, device=xyz.device)
+    held = placed & (slot >= row0) & (slot < row0 + rows)
+    virtual_flat = torch.full_like(slot, virtual).long()
+    flat = torch.where(held, (slot - row0) * B + sub_id, virtual_flat).long()
+    points = torch.cat([m.points.reshape(-1, 3), m.points.new_zeros((B, 3))])
+    occ = torch.cat([m.occ.reshape(-1), m.occ.new_zeros((B,))])
+    writeable = held & ~occ[flat]
+    flat_w = torch.where(writeable, flat, virtual_flat)
+    owner = torch.full(((rows + 1) * B,), N, dtype=torch.int32, device=xyz.device)
     owner.scatter_reduce_(0, flat_w, torch.where(writeable, pt_idx, torch.full_like(pt_idx, N)),
                           "amin")
     is_owner = writeable & (owner[flat_w] == pt_idx)
-    flat_final = torch.where(is_owner, flat, dump_flat.long())
+    flat_final = torch.where(is_owner, flat, virtual_flat)
     # owners write distinct targets; every other point writes (0, unchanged
-    # occupancy) into the dump row, so the duplicates there all agree
-    points = m.points.reshape(-1, 3).clone()
+    # occupancy) into the virtual row, so the duplicates there all agree
     points[flat_final] = torch.where(is_owner[:, None], xyz, torch.zeros_like(xyz))
-    occ = occ_flat.clone()
-    occ[flat_final] = is_owner | occ_flat[flat_final]
-    new_m = HashVoxelMap(keys, points.reshape(m.n_rows, B, 3), occ.reshape(m.n_rows, B))
+    occ[flat_final] = is_owner | occ[flat_final]
+    new_m = HashVoxelMap(keys, points[:virtual].reshape(rows, B, 3),
+                         occ[:virtual].reshape(rows, B))
     return new_m, n_dropped
 
 
@@ -256,15 +262,19 @@ def bound_map(m: HashVoxelMap, center: torch.Tensor, radius: float,
     return delete_outside_box(m, center - radius, center + radius, cfg)
 
 
+def blocks_outside_box(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                       cfg: MapConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys with every live block whose center is outside [lo, hi] emptied,
+    the (rows,) mask of those blocks; the dump row is never one)."""
+    center = (keys[:-1].to(torch.float32) + 0.5) * cfg.block_size
+    live = keys[:-1, 0] != EMPTY_KEY
+    inside = torch.all((center >= lo) & (center <= hi), dim=-1)
+    drop = torch.cat([live & ~inside, torch.zeros((1,), dtype=torch.bool, device=keys.device)])
+    return torch.where(drop[:, None], torch.full_like(keys, EMPTY_KEY), keys), drop
+
+
 def delete_outside_box(m: HashVoxelMap, lo: torch.Tensor, hi: torch.Tensor,
                        cfg: MapConfig) -> HashVoxelMap:
     """Drop every block whose center is outside [lo, hi]."""
-    bsz = cfg.block_size
-    center = (m.keys[:-1].to(torch.float32) + 0.5) * bsz
-    live = m.keys[:-1, 0] != EMPTY_KEY
-    inside = torch.all((center >= lo) & (center <= hi), dim=-1)
-    drop = live & ~inside
-    keys = torch.cat([torch.where(drop[:, None], torch.full_like(m.keys[:-1], EMPTY_KEY),
-                                  m.keys[:-1]), m.keys[-1:]], dim=0)
-    occ = torch.cat([m.occ[:-1] & ~drop[:, None], m.occ[-1:]], dim=0)
-    return HashVoxelMap(keys, m.points, occ)
+    keys, drop = blocks_outside_box(m.keys, lo, hi, cfg)
+    return HashVoxelMap(keys, m.points, m.occ & ~drop[:, None])

@@ -13,7 +13,10 @@ No feature extraction: every downsampled point is a point-to-plane
 constraint. PyTorch runs the step eagerly; the state lives on the device
 `init_lio_state` put it on (cuda unless asked otherwise).
 
-Not ported, and raising: `update_fn`, the multi-chip update hook.
+`_process_lio_body` takes the update as an argument (`update_fn`, the
+signature of update_iterated): the multi-device step
+(parallel/sharding.sharded_lio_step) runs the same body with the update's
+point axis sharded.
 """
 
 from __future__ import annotations
@@ -165,20 +168,19 @@ def undistort_to_end(pts_l: torch.Tensor, pts_t: torch.Tensor, x_end: NavState,
     return (body_end - x_end.t_li) @ R_li
 
 
-def process_lio_scan(state: LioState, pts_l: torch.Tensor, pts_t: torch.Tensor,
-                     pts_mask: torch.Tensor, imu: ImuWindow, cfg: LioConfig,
-                     update_fn=None) -> Tuple[LioState, LioResult]:
-    """One LIO step. pts_l (N,3) raw lidar points as captured, pts_t (N,)
-    seconds from the sweep start, pts_mask (N,). Returns (new state, result);
-    `state` is not modified."""
-    if update_fn is not None:
-        raise NotImplementedError("process_lio_scan(update_fn=...) is not ported to torch")
+def _process_lio_body(state: LioState, pts_l: torch.Tensor, pts_t: torch.Tensor,
+                      pts_mask: torch.Tensor, imu: ImuWindow, cfg: LioConfig,
+                      update_fn=None) -> Tuple[LioState, LioResult]:
+    """The LIO step over its measurement update (`update_fn`, the signature
+    of update_iterated; the module's own where None, looked up at call
+    time)."""
+    upd = update_fn or update_iterated
     x_prop, P_prop, qs, ps, ts = _propagate_window(state.x, state.P, imu, cfg.noise)
 
     und = undistort_to_end(pts_l, pts_t, x_prop, qs, ps, ts)
     ds = voxel_downsample(und, pts_mask, cfg.scan_voxel, cfg.max_scan_pts)
 
-    x_new, P_new, n_ok, rms = update_iterated(x_prop, P_prop, ds, state.map, cfg.map, cfg.ieskf)
+    x_new, P_new, n_ok, rms = upd(x_prop, P_prop, ds, state.map, cfg.map, cfg.ieskf)
 
     # failure detection: a diverged velocity or bias estimate resets the
     # biases and re-inflates the covariance instead of letting the filter
@@ -200,3 +202,12 @@ def process_lio_scan(state: LioState, pts_l: torch.Tensor, pts_t: torch.Tensor,
         new_map = bound_map(new_map, x_new.p, cfg.bound_radius, cfg.map)
     return (LioState(x_new, P_new, new_map, state.frame + 1),
             LioResult(x_new, n_ok, rms, n_drop))
+
+
+def process_lio_scan(state: LioState, pts_l: torch.Tensor, pts_t: torch.Tensor,
+                     pts_mask: torch.Tensor, imu: ImuWindow,
+                     cfg: LioConfig) -> Tuple[LioState, LioResult]:
+    """One LIO step. pts_l (N,3) raw lidar points as captured, pts_t (N,)
+    seconds from the sweep start, pts_mask (N,). Returns (new state, result);
+    `state` is not modified."""
+    return _process_lio_body(state, pts_l, pts_t, pts_mask, imu, cfg)

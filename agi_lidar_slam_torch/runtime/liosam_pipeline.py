@@ -18,8 +18,10 @@ Per scan:
 * map insert + rolling bound.
 
 The keyframe bank, loop closure, GPS and correctPoses backend is
-`slam_pipeline`'s (LioSamDriver below). The reference body's multi-chip
-hook (`solve_fn`) is not ported.
+`slam_pipeline`'s (LioSamDriver below). `_process_liosam_body` takes the
+scan-to-map solve as an argument (`solve_fn`): the multi-device step
+(parallel/sharding.sharded_liosam_step) runs the same body with the feature
+point axis sharded.
 """
 
 from __future__ import annotations
@@ -186,7 +188,11 @@ def _fuse(state: LioSamState, pre, R_prev: torch.Tensor, pred, pose_map: se3.Pos
 
 
 def _process_liosam_body(state: LioSamState, scan: ScanGrid, imu: ImuWindow,
-                         cfg: LioSamConfig) -> Tuple[LioSamState, LioSamResult]:
+                         cfg: LioSamConfig, solve_fn=None) -> Tuple[LioSamState, LioSamResult]:
+    """The per-scan step over its scan-to-map solve (`solve_fn`, the
+    signature of solve_scan2map; the module's own where None, looked up at
+    call time)."""
+    solve = solve_fn or solve_scan2map
     pcfg: PipelineConfig = cfg.slam.pipeline
     eng = state.engine
     R_prev = so3.quat_to_matrix(eng.pose.q)
@@ -211,9 +217,8 @@ def _process_liosam_body(state: LioSamState, scan: ScanGrid, imu: ImuWindow,
     v_pred = state.v + state.grav * dt + R_prev @ pre.dv
 
     # --- scan-to-map GN (scan2MapOptimization) -------------------------------
-    pose_map, stats = solve_scan2map(se3.Pose(q_pred, p_pred), corners, surfs,
-                                     eng.corner_map, eng.surf_map, pcfg.corner_map,
-                                     pcfg.surf_map, pcfg.solver)
+    pose_map, stats = solve(se3.Pose(q_pred, p_pred), corners, surfs, eng.corner_map,
+                            eng.surf_map, pcfg.corner_map, pcfg.surf_map, pcfg.solver)
 
     # --- fusion: error-state KF update (the 2-node factor graph solved in
     # closed form; the degenerate flag inflates the measurement covariance) --

@@ -16,8 +16,10 @@ the gyro deskew (`imu/deskew.deskew_imu_rotation`).
 
 All three maps are octant8: every association runs the octant-KNN kernel on
 the card. The state lives on the device it was made on (cuda unless asked
-otherwise). Not ported, and raising: the solve's multi-chip hook
-(`solve_fn`).
+otherwise). `_process_livox_body` takes the window solve as an argument
+(`solve_fn`, the signature of solve_window): the multi-device step
+(parallel/sharding.sharded_livox_step) runs the same body with the frames'
+point axes sharded.
 """
 
 from __future__ import annotations
@@ -170,8 +172,9 @@ def _insert_all(maps, pose: se3.Pose, batches, cfg: LivoxConfig):
 
 def _process_livox_body(state: LivoxState, scan: ScanGrid, imu: ImuWindow, cfg: LivoxConfig,
                         solve_fn=None) -> Tuple[LivoxState, LivoxResult]:
-    if solve_fn is not None:
-        raise NotImplementedError("_process_livox_body(solve_fn=...) is not ported to torch")
+    """The engaged window-LIO step over its window solve (`solve_fn`; the
+    module's solve_window where None, looked up at call time)."""
+    solve = solve_fn or solve_window
     mount = state.mount
     if cfg.use_mount_calib:
         flat_xyz = scan.xyz.reshape(-1, 3)
@@ -210,7 +213,7 @@ def _process_livox_body(state: LivoxState, scan: ScanGrid, imu: ImuWindow, cfg: 
 
     # windowed MAP solve, then marginalization: the old prior is folded in
     # at the solution (its information vector shifts by -H_prior dx)
-    ws_opt, resid, H, b = solve_window(
+    ws_opt, resid, H, b = solve(
         ws, corners, surfs, state.corner_map, state.surf_map, preints, state.prior,
         state.grav, cfg.corner_map, cfg.surf_map, cfg.solver, cfg.lidar_weight, **okw)
     dx_lin = _boxminus_flat(ws_opt, state.prior)

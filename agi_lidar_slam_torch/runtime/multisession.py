@@ -8,9 +8,9 @@ the merged map is rebuilt.
 This is an offline/batch path (the analog of merging several recorded bags),
 so host-side orchestration around the device steps is appropriate; the heavy
 steps — loop alignment (the engine's own scan-to-map GN), the pose-graph
-solve, and the map rebuild — are the ones the online drivers use. The
-slot-sharded rebuild over a device mesh (`build_merged_map(mesh=...)`) is
-one of the multi-device hooks, not ported yet.
+solve, and the map rebuild — are the ones the online drivers use. With a
+device mesh, `build_merged_map` rebuilds the map slot-sharded over its "mp"
+ranks (parallel/map_shard.py).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from ..graph.loop_closure import LoopConfig, align_loop
 from ..graph.pose_graph import (EdgeSet, add_edge, between_measurement,
                                 empty_edges, solve_pose_graph)
 from ..map.hash_map import HashVoxelMap, empty_map, insert
+from ..parallel.map_shard import shard_map_arrays, sharded_insert
 
 
 def merge_banks(banks: List[KeyframeBank], capacity: Optional[int] = None
@@ -170,10 +171,12 @@ def merge_sessions(
 
 def build_merged_map(bank: KeyframeBank, map_cfg, mesh=None) -> HashVoxelMap:
     """Rebuild one global map from the corrected merged bank (surf clouds),
-    on the bank's device. A `mesh` (the slot-sharded map over several
-    devices) is one of the multi-device hooks, not ported: it raises."""
-    if mesh is not None:
-        raise NotImplementedError("the slot-sharded merged map (mesh=...) is not ported to torch")
+    on the bank's device.
+
+    With `mesh` (a DeviceMesh with an "mp" dimension) the map is
+    slot-sharded over the mp ranks and filled through
+    parallel/map_shard.sharded_insert: each rank returns keys whole and its
+    own range of points and occupancy rows."""
     K = bank.capacity
     dev = bank.q.device
     live = (torch.arange(K, device=dev) < bank.count)[:, None]
@@ -181,4 +184,7 @@ def build_merged_map(bank: KeyframeBank, map_cfg, mesh=None) -> HashVoxelMap:
     world = torch.einsum("kij,knj->kni", R, bank.surf_xyz) + bank.t[:, None, :]
     xyz = world.reshape(-1, 3)
     mask = (bank.surf_mask & live).reshape(-1)
-    return insert(empty_map(map_cfg, dev), xyz, mask, map_cfg)
+    if mesh is None:
+        return insert(empty_map(map_cfg, dev), xyz, mask, map_cfg)
+    m = shard_map_arrays(empty_map(map_cfg, dev), mesh)
+    return sharded_insert(mesh, m, xyz, mask, map_cfg)

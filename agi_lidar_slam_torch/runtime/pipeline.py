@@ -12,6 +12,10 @@ previous scan's features, inserted each scan into two throwaway maps of
 `odom_map`, and starts the scan-to-map solve from its estimate; `two_step`
 takes LeGO-LOAM's two-step solver (estimators/two_step.py) for the
 scan-to-map solve. `process_scan_chunk` (a launch batcher) is not ported.
+
+`_process_scan_body` takes the solver, insert and bound operations as
+arguments, so the multi-device steps (parallel/sharding.py) run this same
+body with the point axis sharded (dp) or the map slot-sharded (mp).
 """
 
 from __future__ import annotations
@@ -71,10 +75,22 @@ def init_state(cfg: PipelineConfig, device=None) -> EngineState:
     )
 
 
-def process_scan(state: EngineState, scan: ScanGrid,
-                 cfg: PipelineConfig) -> Tuple[EngineState, ScanResult]:
-    """Process one sweep; returns (new state, result). `state` is not
-    modified: the maps of the new state are new tensors."""
+def _process_scan_body(
+    state: EngineState, scan: ScanGrid, cfg: PipelineConfig,
+    solve_fn=None,
+    solve_two_fn=None,
+    insert_fn=None,
+    bound_fn=None,
+) -> Tuple[EngineState, ScanResult]:
+    """The per-scan pipeline over its solver, insert and bound operations,
+    each the module's own function where None (looked up at call time).
+    The reference's body takes the first three; `bound_fn` is the port's own:
+    a slot-sharded map has no global view in torch, so its rolling bound
+    (parallel/map_shard.sharded_bound) is an operation of its own too."""
+    solve_fn = solve_fn or solve_scan2map
+    solve_two_fn = solve_two_fn or solve_scan2map_two_step
+    insert_fn = insert_fn or insert_with_stats
+    bound_fn = bound_fn or bound_map
     rel = se3.compose(se3.inverse(state.prev_pose), state.pose)
 
     # features come from the RAW (distorted) sweep; the solver deskews them at
@@ -110,15 +126,15 @@ def process_scan(state: EngineState, scan: ScanGrid,
         osmap = insert(empty_map(cfg.odom_map, dev), state.prev_surfs.xyz,
                        state.prev_surfs.mask, cfg.odom_map)
         odsk = (qtau_c, qtau_s, se3.Pose.identity(device=dev)) if cfg.deskew else None
-        rel_opt, _ = solve_scan2map(rel, q_c, q_s, ocmap, osmap, cfg.odom_map, cfg.odom_map,
-                                    cfg.odom_solver, deskew=odsk)
+        rel_opt, _ = solve_fn(rel, q_c, q_s, ocmap, osmap, cfg.odom_map, cfg.odom_map,
+                              cfg.odom_solver, deskew=odsk)
         pred = se3.compose(state.pose, rel_opt)
     else:
         pred = se3.compose(state.pose, rel)  # constant-velocity initial guess
     # on an empty map every eigenvalue of H is below the degeneracy threshold,
     # so the solver is a no-op and the pose stays at the prediction
     dsk = (tau_c, tau_s, state.pose) if cfg.deskew else None
-    solve = solve_scan2map_two_step if cfg.two_step else solve_scan2map
+    solve = solve_two_fn if cfg.two_step else solve_fn
     pose_opt, stats = solve(
         pred, corners, surfs, state.corner_map, state.surf_map,
         cfg.corner_map, cfg.surf_map, cfg.solver, deskew=dsk,
@@ -131,17 +147,24 @@ def process_scan(state: EngineState, scan: ScanGrid,
         surfs = PointBatch(se3.apply_interpolated(rel_opt, tau_s, surfs.xyz), surfs.mask)
 
     R = so3.quat_to_matrix(pose_opt.q)
-    cmap, drop_c = insert_with_stats(state.corner_map, corners.xyz @ R.T + pose_opt.t,
-                                     corners.mask, cfg.corner_map)
-    smap, drop_s = insert_with_stats(state.surf_map, surfs.xyz @ R.T + pose_opt.t,
-                                     surfs.mask, cfg.surf_map)
+    cmap, drop_c = insert_fn(state.corner_map, corners.xyz @ R.T + pose_opt.t,
+                             corners.mask, cfg.corner_map)
+    smap, drop_s = insert_fn(state.surf_map, surfs.xyz @ R.T + pose_opt.t,
+                             surfs.mask, cfg.surf_map)
     if cfg.bound_radius > 0:
-        cmap = bound_map(cmap, pose_opt.t, cfg.bound_radius, cfg.corner_map)
-        smap = bound_map(smap, pose_opt.t, cfg.bound_radius, cfg.surf_map)
+        cmap = bound_fn(cmap, pose_opt.t, cfg.bound_radius, cfg.corner_map)
+        smap = bound_fn(smap, pose_opt.t, cfg.bound_radius, cfg.surf_map)
 
     new_state = EngineState(pose_opt, state.pose, cmap, smap, state.frame + 1,
                             corners, surfs)
     return new_state, ScanResult(pose_opt, stats, corners, surfs, drop_c + drop_s)
+
+
+def process_scan(state: EngineState, scan: ScanGrid,
+                 cfg: PipelineConfig) -> Tuple[EngineState, ScanResult]:
+    """Process one sweep; returns (new state, result). `state` is not
+    modified: the maps of the new state are new tensors."""
+    return _process_scan_body(state, scan, cfg)
 
 
 def run_sequence(scans, cfg: PipelineConfig, state: EngineState | None = None):

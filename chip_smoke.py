@@ -43,7 +43,7 @@ Phases, each printing its own lines:
                launched 4 times per scan, healthy correspondence counts and
                residuals, ATE against the simulator's ground truth, scans/s
                (over the scans before the last, whose kernel calls are
-               captured for phase 23), then the host syncs of each scan in a
+               captured for phase 25), then the host syncs of each scan in a
                second, untimed run;
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
@@ -145,7 +145,27 @@ Phases, each printing its own lines:
                world with 4 movers through --engine slam and the corridor
                through --engine lio, on the card and the CPU: the card's ATE
                under 3x the CPU's;
- 23. path    — the octant-KNN kernel on the path's own inputs: the arguments
+ 23. parallel — the multi-device layer (parallel/) on one rank in this
+               process over nccl (a HashStore, world size 1): sharded_scan_step
+               and sharded_scan_step_mp on the odom scans (12), sharded_lio_step
+               on the LIO scans (12), sharded_livox_step over the 8 window
+               sweeps after the livox driver's engagement, sharded_liosam_step
+               (12 sweeps), sharded_solve_pose_graph on a full 1024-keyframe
+               bank with 2048 edges, and build_merged_map(mesh=): each against
+               the same single-process step on the card, poses within 1e-6
+               (one rank sums what one process sums; the pose graph compared
+               with deterministic index_add_), equal occupancy; scans/s beside
+               the single process's, octant launches and collectives a scan;
+ 24. parallel-2 — two ranks spawned by parallel/launch.py on the one card over
+               gloo (NCCL refuses two ranks on one device): the same steps for 8
+               scans each, the pose graph, and sharded_knn against knn, held to
+               phase 23's single-process runs at the JAX package's tolerances
+               (odom 1e-4 m, LIO / livox / LIO-SAM 5e-3 m, equal occupancy,
+               pose graph 1e-4); each rank's launches a scan and their query
+               counts; the octant kernel's device time at a rank's half of the
+               odom and LIO queries; tools/scaling_bench at 1 and 2 ranks. The
+               rates there are one card's overhead, not scaling;
+ 25. path    — the octant-KNN kernel on the path's own inputs: the arguments
                of every call of the last odom, LIO and livox scans of
                phases 5, 7 and 13, and the first call on each map of the
                last aloam-ref scan and horizon-ref sweep (phases 15 and 19),
@@ -178,6 +198,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from agi_lidar_slam_torch import _build, config, preset_aloam_kitti64, presets
 from agi_lidar_slam_torch.config import MapConfig
@@ -185,19 +206,25 @@ from agi_lidar_slam_torch.estimators import ieskf, two_step, window_map
 from agi_lidar_slam_torch.eval.metrics import ate_rmse, kitti_drift, rpe_rmse
 from agi_lidar_slam_torch.features import curvature, segmentation
 from agi_lidar_slam_torch.geometry import se3, so3
-from agi_lidar_slam_torch.graph.keyframes import last_index, row
+from agi_lidar_slam_torch.graph import pose_graph
+from agi_lidar_slam_torch.graph.keyframes import add_keyframe, empty_bank, last_index, row
 from agi_lidar_slam_torch.graph.loop_closure import LoopConfig
 from agi_lidar_slam_torch.imu.eskf import NavState
 from agi_lidar_slam_torch.map.hash_map import HashVoxelMap, empty_map, insert
 from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_torch.nn import octant_knn
+from agi_lidar_slam_torch.nn.knn import knn
+from agi_lidar_slam_torch.parallel import distributed as pdist
+from agi_lidar_slam_torch.parallel import map_shard, sharding
+from agi_lidar_slam_torch.parallel.launch import launch
 from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid
-from agi_lidar_slam_torch.runtime import livox_pipeline, liosam_pipeline, pipeline, slam_pipeline
+from agi_lidar_slam_torch.runtime import (livox_pipeline, liosam_pipeline, multisession, pipeline,
+                                          slam_pipeline)
 from agi_lidar_slam_torch.runtime import lio_pipeline as lio
 from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose, circle_velocity
 from agi_lidar_slam_torch.sim.world import default_world, simulate_scan
-from agi_lidar_slam_torch.tools import probe
+from agi_lidar_slam_torch.tools import probe, scaling_bench
 from agi_lidar_slam_torch.tools import run_slam as runner_cli
 
 SEED = 0
@@ -2375,6 +2402,428 @@ def phase_runner_sim(device, card: str) -> dict:
     return {"launches": sum(v["launches"] for v in out.values()), **out}
 
 
+# the multi-device phases: scans of each path on the two ranks; the full
+# keyframe bank's graph; one rank over nccl against the single process (one
+# rank sums what one process sums), two gloo ranks at the JAX package's own
+# tolerances (tests/test_sharding_parity.py:79,109-111,163-165;
+# tests/test_pose_graph.py:107-110)
+PAR2_SCANS = 8
+GRAPH_K, GRAPH_E = 1024, 2048
+PAR1_TOL = 1e-6
+PAR2_ODOM_TOL, PAR2_IMU_TOL, PAR2_GRAPH_TOL = 1e-4, 5e-3, 1e-4
+PAR2_DEADLINE_S = 400.0
+# the maps whose occupancy the JAX package's own parity tests hold equal
+PAR2_OCC = {"odom-dp": ("surf_map",), "odom-mp": ("corner_map", "surf_map"), "lio": ("map",),
+            "livox": ("surf_map",), "liosam": ("surf_map",)}
+
+
+def graph_problem(device):
+    """A full bank's pose graph (GRAPH_K keyframes, GRAPH_E edges) made from
+    SEED: a 3-turn spiral of radius 20 m, the odometry chain and loop edges
+    between keyframes at least 20 apart, exact measurements of weight 100,
+    and initial poses that drift from the truth in yaw and position."""
+    rng = np.random.default_rng(SEED)
+    K, E = GRAPH_K, GRAPH_E
+    th = np.linspace(0.0, 6 * np.pi, K)
+
+    def yaw_quat(yaw):
+        z = np.zeros_like(yaw)
+        return np.stack([np.cos(yaw / 2), z, z, np.sin(yaw / 2)], -1).astype(np.float32)
+
+    t = np.stack([20 * np.cos(th), 20 * np.sin(th), 0.01 * np.arange(K)], -1).astype(np.float32)
+    n_loop = E - (K - 1)
+    a = rng.integers(0, K - 21, n_loop)
+    b = a + 20 + (rng.random(n_loop) * (K - 1 - (a + 20))).astype(np.int64)
+    i = np.concatenate([np.arange(K - 1), a]).astype(np.int32)
+    j = np.concatenate([np.arange(1, K), b]).astype(np.int32)
+    gt = se3.Pose(torch.from_numpy(yaw_quat(th + np.pi / 2)).to(device),
+                  torch.from_numpy(t).to(device))
+    il, jl = torch.from_numpy(i).to(device).long(), torch.from_numpy(j).to(device).long()
+    z = se3.compose(se3.inverse(se3.Pose(gt.q[il], gt.t[il])), se3.Pose(gt.q[jl], gt.t[jl]))
+    w = torch.full((E,), 100.0, device=device)
+    edges = pose_graph.EdgeSet(
+        i=il.to(torch.int32), j=jl.to(torch.int32), z_q=z.q, z_t=z.t, w_rot=w, w_trans=w.clone(),
+        kind=torch.zeros(E, dtype=torch.int32, device=device),
+        valid=torch.ones(E, dtype=torch.bool, device=device),
+        count=torch.full((), E, dtype=torch.int32, device=device))
+    yaw0 = th + np.pi / 2 + np.cumsum(rng.normal(0.0, 1e-3, K))
+    t0 = t + np.cumsum(rng.normal(0.0, 0.01, (K, 3)), axis=0).astype(np.float32)
+    poses = se3.Pose(torch.from_numpy(yaw_quat(yaw0)).to(device),
+                     torch.from_numpy(t0.astype(np.float32)).to(device))
+    return poses, torch.full((), K, dtype=torch.int32, device=device), edges
+
+
+@contextlib.contextmanager
+def knn_queries(record: list):
+    """While open, append the query count of every octant_knn.knn_octant call."""
+    real = octant_knn.knn_octant
+
+    def wrapper(m, queries, qmask, k, cfg, ktab=None):
+        record.append(int(queries.shape[0]))
+        return real(m, queries, qmask, k, cfg, ktab=ktab)
+
+    octant_knn.knn_octant = wrapper
+    try:
+        yield record
+    finally:
+        octant_knn.knn_octant = real
+
+
+def run_path(step, state, items) -> dict:
+    """step(state, item) over `items`, the card synchronized after each: the
+    final state and the one after PAR2_SCANS items, the results, scans/s over
+    the items after the first N_WARM (CUDA events), and per item the octant
+    launches, their query counts and the collectives. The launch count
+    starts this path at 0."""
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    results, launches, queries, colls = [], [], [], []
+    kept = None
+    octant_knn.launches = 0
+    marks[0].record()
+    for i, it in enumerate(items):
+        l0, c0, q = octant_knn.launches, pdist.collectives, []
+        with knn_queries(q):
+            state, res = step(state, it)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        results.append(res)
+        launches.append(octant_knn.launches - l0)
+        queries.append(q)
+        colls.append(pdist.collectives - c0)
+        if i == PAR2_SCANS - 1:
+            kept = state
+    steady = (len(items) - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-1])
+    return {"state": state, "kept": kept, "results": results, "scans_per_s": steady,
+            "per_scan": launches, "launches": octant_knn.launches, "queries": queries,
+            "collectives": colls}
+
+
+def _pose_t(res) -> np.ndarray:
+    return (res.x.p if hasattr(res, "x") else res.pose.t).cpu().numpy()
+
+
+def _pose_q(res) -> np.ndarray:
+    return (res.x.q if hasattr(res, "x") else res.pose.q).cpu().numpy()
+
+
+def pose_gap(a: list, b: list) -> tuple[float, float]:
+    """max |dt| (m) and max |dq| between two runs' per-scan results."""
+    return (max(float(np.abs(_pose_t(x) - _pose_t(y)).max()) for x, y in zip(a, b)),
+            max(float(np.abs(_pose_q(x) - _pose_q(y)).max()) for x, y in zip(a, b)))
+
+
+def occupancy(state) -> dict:
+    """Points held by each map of an engine state."""
+    state = getattr(state, "engine", state)
+    return {f: int(getattr(state, f).num_points())
+            for f in ("map", "corner_map", "surf_map", "other_map") if hasattr(state, f)}
+
+
+def gathered(run: dict, mesh) -> None:
+    """A slot-sharded path's kept and final states with their maps whole."""
+    for key in ("state", "kept"):
+        st = run[key]
+        run[key] = st._replace(corner_map=map_shard.gather_map_arrays(st.corner_map, mesh),
+                               surf_map=map_shard.gather_map_arrays(st.surf_map, mesh))
+
+
+def engaged_livox(sweeps: list, device):
+    """The livox driver through its LO sweeps and engagement (the first
+    LIVOX_INIT_FRAMES sweeps): its config and window state."""
+    drv = livox_driver(device)
+    for s, win in sweeps[:LIVOX_INIT_FRAMES]:
+        drv.process(s, win)
+    if not drv.engaged:
+        raise AssertionError("livox: not engaged after its LO sweeps")
+    return drv.cfg, drv.state
+
+
+def liosam_start(cfg, device):
+    return liosam_pipeline.init_liosam_state(
+        cfg, x0=circle_pose(0.0, LIO_RADIUS, LIO_OMEGA, device=device),
+        v0=circle_velocity(0.0, LIO_RADIUS, LIO_OMEGA, device=device), device=device)
+
+
+def sharded_paths(dp, mp, device, scans: list, lio_items: list, sweeps: list,
+                  liosam_sweeps: list) -> dict:
+    """Every sharded engine step over its inputs: the dp and mp odometry
+    steps (the odom cell; `mp`'s maps slot-sharded, counted whole at the
+    end), LIO, the livox window sweeps after the engagement on `sweeps`'
+    first LIVOX_INIT_FRAMES, LIO-SAM; the point axes split over `dp`'s
+    ranks, the map slots over `mp`'s."""
+    cfg = preset_aloam_kitti64()
+    runs = {"odom-dp": run_path(lambda s, x: sharding.sharded_scan_step(dp, s, x, cfg),
+                                moving_start(cfg, device), scans)}
+    st = moving_start(cfg, device)
+    st = st._replace(corner_map=map_shard.shard_map_arrays(st.corner_map, mp),
+                     surf_map=map_shard.shard_map_arrays(st.surf_map, mp))
+    runs["odom-mp"] = run_path(lambda s, x: sharding.sharded_scan_step_mp(mp, s, x, cfg), st,
+                               scans)
+    gathered(runs["odom-mp"], mp)
+    lcfg = lio.LioConfig()
+    runs["lio"] = run_path(lambda s, it: sharding.sharded_lio_step(dp, s, *it, lcfg),
+                           lio_start(lcfg, device), lio_items)
+    xcfg, xst = engaged_livox(sweeps, device)
+    runs["livox"] = run_path(lambda s, it: sharding.sharded_livox_step(dp, s, *it, xcfg), xst,
+                             sweeps[LIVOX_INIT_FRAMES:])
+    scfg = liosam_config()
+    runs["liosam"] = run_path(lambda s, it: sharding.sharded_liosam_step(dp, s, *it, scfg),
+                              liosam_start(scfg, device), liosam_sweeps)
+    return runs
+
+
+def single_paths(device, scans: list, lio_items: list, sweeps: list,
+                 liosam_sweeps: list) -> dict:
+    """The single-process steps over the inputs of sharded_paths."""
+    cfg = preset_aloam_kitti64()
+    odom = run_path(lambda s, x: process_scan(s, x, cfg), moving_start(cfg, device), scans)
+    lcfg = lio.LioConfig()
+    xcfg, xst = engaged_livox(sweeps, device)
+    scfg = liosam_config()
+    return {"odom-dp": odom, "odom-mp": odom,
+            "lio": run_path(lambda s, it: lio.process_lio_scan(s, *it, lcfg),
+                            lio_start(lcfg, device), lio_items),
+            "livox": run_path(lambda s, it: livox_pipeline.process_livox_scan(s, *it, xcfg),
+                              xst, sweeps[LIVOX_INIT_FRAMES:]),
+            "liosam": run_path(lambda s, it: liosam_pipeline.process_liosam_scan(s, *it, scfg),
+                               liosam_start(scfg, device), liosam_sweeps)}
+
+
+def merged_bank(results: list, device):
+    """A keyframe bank holding each odom result's pose and features."""
+    cfg = preset_aloam_kitti64()
+    bank = empty_bank(16, cfg.features.max_corners, cfg.features.max_surfs, device)
+    yes = torch.ones((), dtype=torch.bool, device=device)
+    for i, r in enumerate(results):
+        bank, _ = add_keyframe(bank, r.pose, r.corners, r.surfs,
+                               torch.full((), i, dtype=torch.int32, device=device), yes)
+    return bank
+
+
+def phase_parallel(device, main: dict, lio_run: dict, livox_run: dict, card: str,
+                   backend: str = "nccl") -> dict:
+    """The multi-device layer on one rank in this process, over `backend`
+    (nccl on the card) with a HashStore: every sharded step at full width on
+    the cells' own inputs (12 odom scans through the dp and the mp step, 12
+    LIO scans, the livox window sweeps after its engagement, 12 LIO-SAM
+    scans), the edge-sharded pose graph on a full 1024-keyframe bank with
+    2048 edges, and the slot-sharded merged map, each against the same
+    single-process step on the same card: poses within PAR1_TOL, equal
+    occupancy; scans/s beside the single process's, launches and collectives
+    a scan."""
+    if is_card(device):
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = pdist.make_mesh_2d(dp=1, mp=1, device=device)
+        sweeps = livox_run["sweeps"]
+        args = (device, main["scans"], lio_run["items"], sweeps, sweeps)
+        single = single_paths(*args)
+        sharded = sharded_paths(mesh, mesh, *args)
+        out = {"paths": {}}
+        for name, run in sharded.items():
+            ref = single[name]
+            dt, dq = pose_gap(run["results"], ref["results"])
+            occ, ref_occ = occupancy(run["state"]), occupancy(ref["state"])
+            out["paths"][name] = {
+                "scans_per_s": run["scans_per_s"], "single_scans_per_s": ref["scans_per_s"],
+                "per_scan": run["per_scan"], "launches": run["launches"],
+                "collectives_per_scan": run["collectives"], "max_dt_m": dt, "max_dq": dq,
+                "occupancy": occ}
+            log(f"parallel {name}: {len(run['results'])} scans on 1 {backend} rank: "
+                f"{run['scans_per_s']:.2f} scans/s (single process {ref['scans_per_s']:.2f}); "
+                f"collectives a scan {run['collectives']}; octant launches a scan "
+                f"{run['per_scan']} (single process {ref['per_scan']}); max |dt| {dt:.3g} m, "
+                f"|dq| {dq:.3g}; occupancy {occ}")
+            if dt > PAR1_TOL or dq > PAR1_TOL:
+                raise AssertionError(f"parallel {name}: one rank differs from the single "
+                                     f"process by {dt:.3g} m / {dq:.3g}")
+            if occ != ref_occ:
+                raise AssertionError(f"parallel {name}: occupancy {occ} != {ref_occ}")
+            if not all(n > 0 for n in run["collectives"]):
+                raise AssertionError(f"parallel {name}: a scan issued no collective")
+            if name != "odom-mp" and run["per_scan"] != ref["per_scan"]:
+                raise AssertionError(f"parallel {name}: octant launches differ from the "
+                                     "single process's")
+        # the pose graph: one rank's sums are the single process's, compared
+        # with index_add_ in its deterministic form; timed as it runs
+        poses, n_nodes, edges = graph_problem(device)
+        with deterministic():
+            ref_g = pose_graph.solve_pose_graph(poses, n_nodes, edges)
+            got_g = pose_graph.sharded_solve_pose_graph(mesh, poses, n_nodes, edges)
+        dt = float((ref_g.t - got_g.t).abs().max())
+        moved = float((ref_g.t - poses.t).abs().max())
+        c0 = pdist.collectives
+        pose_graph.sharded_solve_pose_graph(mesh, poses, n_nodes, edges)
+        g_coll = pdist.collectives - c0
+        g_ms = cuda_ms(lambda: pose_graph.sharded_solve_pose_graph(mesh, poses, n_nodes, edges), 5)
+        g_ref_ms = cuda_ms(lambda: pose_graph.solve_pose_graph(poses, n_nodes, edges), 5)
+        log(f"parallel pose graph: {GRAPH_K} keyframes, {GRAPH_E} edges on 1 {backend} rank: "
+            f"{g_ms:.2f} ms a solve (single process {g_ref_ms:.2f}), {g_coll} collectives; "
+            f"max |dt| {dt:.3g} m against the single process; the solve moved poses by up to "
+            f"{moved:.3g} m")
+        if not (dt <= PAR1_TOL and moved > 0.01):
+            raise AssertionError(f"parallel pose graph: {dt:.3g} m from the single process")
+        out["graph"] = {"ms": g_ms, "single_ms": g_ref_ms, "collectives": g_coll,
+                        "max_dt_m": dt, "t": ref_g.t.cpu().numpy()}
+        bank = merged_bank(single["odom-dp"]["results"], device)
+        mcfg = preset_aloam_kitti64().surf_map
+        ref_m = multisession.build_merged_map(bank, mcfg)
+        got_m = map_shard.gather_map_arrays(multisession.build_merged_map(bank, mcfg, mesh=mesh),
+                                           mesh)
+        if not all(torch.equal(a, b) for a, b in zip(ref_m, got_m)):
+            raise AssertionError("parallel: the slot-sharded merged map differs")
+        log(f"parallel merged map: {int(bank.count)} keyframes, {int(ref_m.num_points())} "
+            f"points, the slot-sharded build equal to the single process's; on {card}")
+        out["single"] = {name: {"t": [_pose_t(r) for r in run["results"]],
+                                "scans_per_s": run["scans_per_s"],
+                                "occupancy": occupancy(run["kept"])}
+                         for name, run in single.items()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms while open (warn only where an op
+    has none)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _par2_rank(rank: int, device_type: str) -> dict:
+    """One of the parallel-2 phase's two ranks: the inputs made here from
+    SEED as the single-process phases made theirs (with a checksum of each),
+    every sharded step over PAR2_SCANS of them, the pose graph, and the
+    merged KNN against knn on the whole map."""
+    device = pdist.local_device(rank) if device_type == "cuda" else torch.device("cpu")
+    dp = pdist.make_mesh_2d(dp=2, mp=1, device=device_type)
+    mp = pdist.make_mesh_2d(dp=1, mp=2, device=device_type)
+    scans = make_scans(device)[0][:PAR2_SCANS]
+    lio_items = make_lio_inputs(PAR2_SCANS, device)[0]
+    sweeps = lio_sweeps(LIVOX_INIT_FRAMES + PAR2_SCANS, device)[0]
+    out = {"checksum": input_checksum(scans, sweeps)}
+    runs = sharded_paths(dp, mp, device, scans, lio_items, sweeps, sweeps[:PAR2_SCANS])
+    out["paths"] = {name: {"t": [_pose_t(r) for r in run["results"]],
+                           "scans_per_s": run["scans_per_s"], "per_scan": run["per_scan"],
+                           "queries": run["queries"][-1], "collectives": run["collectives"],
+                           "occupancy": occupancy(run["kept"])} for name, run in runs.items()}
+    poses, n_nodes, edges = graph_problem(device)
+    out["graph_t"] = pose_graph.sharded_solve_pose_graph(dp, poses, n_nodes, edges).t.cpu().numpy()
+    out["graph_ms"] = cuda_ms(
+        lambda: pose_graph.sharded_solve_pose_graph(dp, poses, n_nodes, edges), 3)
+    rng = np.random.default_rng(SEED)
+    mcfg = preset_aloam_kitti64().surf_map
+    m = filled_map(mcfg, 80000, rng, device)
+    q = torch.from_numpy(rng.uniform([-20, -20, -1], [20, 20, 4], (8192, 3)).astype(
+        np.float32)).to(device)
+    qm = torch.ones(8192, dtype=torch.bool, device=device)
+    ref = knn(m, q, qm, 5, mcfg)
+    got = map_shard.sharded_knn(mp, map_shard.shard_map_arrays(m, mp), q, qm, 5, mcfg)
+    v = ref.valid
+    out["knn"] = {"valid_equal": bool(torch.equal(got.valid, v)),
+                  "sq_err": float((got.sq_dists - ref.sq_dists)[v].abs().max()),
+                  "sq_scale": float(ref.sq_dists[v].abs().max()),
+                  "pts_err": float((got.points - ref.points)[v].abs().max()),
+                  "valid_share": float(v.float().mean())}
+    return out
+
+
+def input_checksum(scans: list, sweeps: list) -> list:
+    """Each scan's and sweep's coordinate sum (float64): the ranks' inputs
+    against this process's."""
+    return [float(s.xyz.double().sum()) for s in scans] + [
+        float(s.xyz.double().sum()) for s, _ in sweeps]
+
+
+def phase_parallel2(device, par: dict, main: dict, lio_run: dict, livox_run: dict) -> dict:
+    """Two ranks spawned by parallel/launch.py on the one card, over gloo
+    (NCCL refuses two ranks on one device; gloo stages CUDA tensors through
+    host memory inside torch). Each rank runs every sharded step for
+    PAR2_SCANS scans at 64x1800, the pose graph and the merged KNN; the
+    results are held here against the parallel phase's single-process runs
+    at the JAX package's tolerances, with equal occupancy. The rates are the
+    sharded path's overhead on one card, not scaling. Then the octant
+    kernel's device time at a rank's half of the odom and LIO queries, and
+    tools/scaling_bench at 1 and 2 ranks."""
+    dtype = torch.device(device).type
+    ranks = launch(_par2_rank, 2, (dtype,), device=dtype, backend="gloo",
+                   deadline_s=PAR2_DEADLINE_S)
+    want = input_checksum(main["scans"][:PAR2_SCANS],
+                          livox_run["sweeps"][:LIVOX_INIT_FRAMES + PAR2_SCANS])
+    out = {"paths": {}, "note": "two ranks share one card over gloo: the rates are the "
+                               "sharded path's overhead, not scaling"}
+    for r, got in enumerate(ranks):
+        if got["checksum"] != want:
+            raise AssertionError(f"parallel-2: rank {r} made other inputs than this process")
+    for name in ranks[0]["paths"]:
+        ref = par["single"][name]
+        tol = PAR2_ODOM_TOL if name.startswith("odom") else PAR2_IMU_TOL
+        rec = {}
+        for r, got in enumerate(ranks):
+            p = got["paths"][name]
+            err = max(float(np.abs(a - b).max()) for a, b in zip(p["t"], ref["t"]))
+            rec[f"rank{r}"] = {k: p[k] for k in ("scans_per_s", "per_scan", "queries",
+                                                  "collectives")} | {"max_dt_m": err}
+            log(f"parallel-2 {name} rank {r}: {len(p['t'])} scans, {p['scans_per_s']:.2f} "
+                f"scans/s (single process {ref['scans_per_s']:.2f}; two gloo ranks on one "
+                f"card: overhead, not scaling); octant launches a scan {p['per_scan']}, the "
+                f"last scan's at {p['queries']} queries; collectives a scan "
+                f"{p['collectives']}; max |dt| {err:.3g} m (tolerance {tol}); occupancy "
+                f"{p['occupancy']} (single process {ref['occupancy']})")
+            if not err <= tol:
+                raise AssertionError(f"parallel-2 {name}: rank {r} {err:.3g} m from the "
+                                     "single process")
+            if any(p["occupancy"][m] != ref["occupancy"][m] for m in PAR2_OCC[name]):
+                raise AssertionError(f"parallel-2 {name}: rank {r} occupancy "
+                                     f"{p['occupancy']} != {ref['occupancy']}")
+        if not all(np.array_equal(a, b) for a, b in zip(ranks[0]["paths"][name]["t"],
+                                                        ranks[1]["paths"][name]["t"])):
+            raise AssertionError(f"parallel-2 {name}: the two ranks hold other poses")
+        out["paths"][name] = rec
+    gerr = max(float(np.abs(got["graph_t"] - par["graph"]["t"]).max()) for got in ranks)
+    log(f"parallel-2 pose graph: {GRAPH_K} keyframes, {GRAPH_E} edges split over 2 gloo "
+        f"ranks: {ranks[0]['graph_ms']:.2f} ms a solve (1 rank: {par['graph']['ms']:.2f}); max "
+        f"|dt| {gerr:.3g} m against the single process (tolerance {PAR2_GRAPH_TOL})")
+    if not gerr <= PAR2_GRAPH_TOL:
+        raise AssertionError(f"parallel-2 pose graph {gerr:.3g} m from the single process")
+    out["graph"] = {"ms": ranks[0]["graph_ms"], "max_dt_m": gerr}
+    for r, got in enumerate(ranks):
+        k = got["knn"]
+        log(f"parallel-2 sharded_knn rank {r} against knn (8192 queries, k=5, the whole "
+            f"map): {k}")
+        if not (k["valid_equal"] and k["sq_err"] <= 1e-5 * k["sq_scale"] + 1e-6
+                and k["pts_err"] == 0.0 and k["valid_share"] > 0.5):
+            raise AssertionError(f"parallel-2: sharded_knn differs from knn on rank {r}: {k}")
+    out["knn"] = ranks[0]["knn"]
+    shard = {}  # the octant kernel at a rank's half of the path's queries
+    for path, calls in (("odom", main["calls"]), ("lio", lio_run["calls"])):
+        for j, (m, q, qm, k, mcfg, ktab) in enumerate(calls):
+            h = q.shape[0] // 2
+            label = f"{path}#{j}:{h}x{m.n_rows}xk{k}"
+            bound_ms, bound_by = knn_bound(m, q[:h], qm[:h], k, mcfg, ktab)
+            shard[label] = {
+                "device_ms": device_ms(
+                    lambda: octant_knn.knn_octant(m, q[:h], qm[:h], k, mcfg, ktab=ktab)),
+                "full_device_ms": device_ms(
+                    lambda: octant_knn.knn_octant(m, q, qm, k, mcfg, ktab=ktab)),
+                "plain_device_ms": device_ms(
+                    lambda: octant_knn.knn_octant_ref(m, q[:h], qm[:h], k, mcfg, ktab=ktab)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"parallel-2 octant kernel at a rank's half {label}: {shard[label]}")
+    out["shard_ms"] = shard
+    out["scaling"] = scaling_bench.run(2, device=dtype, reps=8)
+    for rec in out["scaling"]:
+        log("parallel-2 scaling_bench: " + json.dumps(rec))
+    return out
+
+
 def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     """The octant-KNN kernel on the arguments captured from the paths' own
     calls: exactness, device and call times against the plain version, the
@@ -2419,7 +2868,8 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
 
 def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
                  liosam_run: dict, livox_run: dict, aloam_run: dict, lego_run: dict,
-                 preset_runs: dict, runner_runs: dict, path: dict) -> dict:
+                 preset_runs: dict, runner_runs: dict, par: dict, par2: dict,
+                 path: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -2436,13 +2886,29 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "replaces": "agi_lidar_slam_tpu/nn/vmem_knn.py:150",
          "launches": sum(r["launches"] for r in (main_run, lio_run, slam_run, liosam_run,
                                                  livox_run, aloam_run, lego_run,
-                                                 *preset_runs.values(), *runner_runs.values())),
+                                                 *preset_runs.values(), *runner_runs.values(),
+                                                 *par["paths"].values())),
          "launches_by_path": {"odom": main_run["launches"], "lio": lio_run["launches"],
                               "slam": slam_run["launches"], "liosam": liosam_run["launches"],
                               "livox": livox_run["launches"], "aloam-ref": aloam_run["launches"],
                               "lego-ref": lego_run["launches"],
                               **{k: v["launches"] for k, v in preset_runs.items()},
-                              **{k: v["launches"] for k, v in runner_runs.items()}},
+                              **{k: v["launches"] for k, v in runner_runs.items()},
+                              **{f"parallel {k}": v["launches"] for k, v in par["paths"].items()}},
+         "parallel": {k: {f: v[f] for f in ("per_scan", "collectives_per_scan", "scans_per_s",
+                                            "single_scans_per_s", "max_dt_m")}
+                      for k, v in par["paths"].items()} | {"pose_graph": {
+                          f: par["graph"][f] for f in ("ms", "single_ms", "collectives",
+                                                       "max_dt_m")}},
+         "parallel_2": {"note": par2["note"], "launches_per_scan_by_rank": {
+             k: {r: v[r]["per_scan"] for r in ("rank0", "rank1")}
+             for k, v in par2["paths"].items()},
+             "queries_per_launch_by_rank": {k: {r: v[r]["queries"] for r in ("rank0", "rank1")}
+                                            for k, v in par2["paths"].items()},
+             "scans_per_s_by_rank": {k: {r: v[r]["scans_per_s"] for r in ("rank0", "rank1")}
+                                     for k, v in par2["paths"].items()},
+             "shard_device_ms": par2["shard_ms"], "pose_graph": par2["graph"],
+             "scaling_bench": par2["scaling"]},
          "max_abs_err": max(kern["max_abs_err"], *(v["max_abs_err"] for v in path.values())),
          "ms": t["lio"]["device_ms"],
          "plain_ms": t["lio"]["plain_device_ms"], "bound_ms": t["lio"]["bound_ms"],
@@ -2538,6 +3004,8 @@ def main() -> int:
     runner_runs = {name: timed(name, fn, device, smi) for name, fn in (
         ("runner-kitti", phase_runner_kitti), ("runner-bag", phase_runner_bag),
         ("runner-sim", phase_runner_sim))}
+    par = timed("parallel", phase_parallel, device, main_run, lio_run, livox_run, smi)
+    par2 = timed("parallel-2", phase_parallel2, device, par, main_run, lio_run, livox_run)
     path = timed("path", phase_path, {"odom": main_run["calls"], "lio": lio_run["calls"],
                                       "livox": livox_run["calls"],
                                       "aloam-ref": aloam_run["calls"],
@@ -2547,7 +3015,8 @@ def main() -> int:
         + f"; total {sum(seconds.values()):.1f}")
 
     print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, livox_run,
-                                  aloam_run, lego_run, preset_runs, runner_runs, path)),
+                                  aloam_run, lego_run, preset_runs, runner_runs, par, par2,
+                                  path)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -155,16 +155,55 @@ def test_solve_delta(degenerate):
     assert bool(tdeg) == bool(jdeg) == degenerate
 
 
-def test_unported_solver_branches_raise():
+def _scene(seed=5, n=4000):
+    """Points on a floor and two walls, inserted into the preset's corner and
+    surf maps, and a feature batch of every fourth point, moved a little."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-15, 15, (n, 2)).astype(np.float32)
+    side = np.arange(n) % 3
+    pts = np.where(side[:, None] == 0, np.stack([u[:, 0], u[:, 1], -1.5 + 0 * u[:, 0]], -1),
+                   np.where(side[:, None] == 1, np.stack([u[:, 0], 8.0 + 0 * u[:, 0], u[:, 1] / 5], -1),
+                            np.stack([-9.0 + 0 * u[:, 0], u[:, 1], u[:, 0] / 5], -1)))
+    pts = (pts + rng.normal(scale=0.01, size=pts.shape)).astype(np.float32)
+    return pts, pts[::4] + np.float32(0.05)
+
+
+def test_solver_hooks_match_plain_call():
+    """The multi-device hooks of solve_scan2map: group=None is the plain
+    call bit for bit, and a knn_fn that wraps nn.knn.knn (so the solver
+    builds no packed-key index and probes through the hook) gives the plain
+    call's pose and statistics bit for bit, with and without the candidate
+    cache. An empty batch with the cache still runs."""
+    from agi_lidar_slam_torch.map.hash_map import insert as t_insert
+    from agi_lidar_slam_torch.nn.knn import knn as t_knn
+
     cfg = port_cfg(preset_aloam_kitti64())
     pose = tse3.Pose.identity(device="cpu")
     b = TBatch(torch.zeros((4, 3)), torch.zeros(4, dtype=torch.bool))
     cm, sm = t_empty_map(cfg.corner_map, "cpu"), t_empty_map(cfg.surf_map, "cpu")
-    args = (pose, b, b, cm, sm, cfg.corner_map, cfg.surf_map)
-    # the candidate cache is ported: cand_k=8 runs (here on an empty batch)
-    pose8, _ = tgn.solve_scan2map(*args, port_cfg(SolverConfig(cand_k=8)))
+    pose8, _ = tgn.solve_scan2map(pose, b, b, cm, sm, cfg.corner_map, cfg.surf_map,
+                                  port_cfg(SolverConfig(cand_k=8)))
     assert bool(torch.isfinite(pose8.t).all())
-    with pytest.raises(NotImplementedError, match="knn_fn"):
-        tgn.solve_scan2map(*args, cfg.solver, knn_fn=lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        tgn.solve_scan2map(*args, cfg.solver, axis_name="dp")
+
+    pts, feats = _scene()
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    cm = t_insert(cm, torch.from_numpy(pts), mask, cfg.corner_map)
+    sm = t_insert(sm, torch.from_numpy(pts), mask, cfg.surf_map)
+    fb = TBatch(torch.from_numpy(feats), torch.ones(len(feats), dtype=torch.bool))
+    calls = []
+
+    def wrapped(m, q, qm, k, mcfg, ktab=None):
+        calls.append(ktab)
+        return t_knn(m, q, qm, k, mcfg, ktab=ktab)
+
+    for solver in (cfg.solver, port_cfg(SolverConfig(cand_k=8))):
+        args = (pose, fb, fb, cm, sm, cfg.corner_map, cfg.surf_map, solver)
+        plain = tgn.solve_scan2map(*args)
+        calls.clear()
+        for hooked in (tgn.solve_scan2map(*args, group=None),
+                       tgn.solve_scan2map(*args, knn_fn=wrapped)):
+            for a, b_ in zip(tuple(plain[0]) + tuple(plain[1]),
+                             tuple(hooked[0]) + tuple(hooked[1])):
+                assert torch.equal(a, b_)
+        assert calls and all(t is None for t in calls)
+        assert int(plain[1].n_surf) > 200  # a real solve, not a no-op

@@ -427,6 +427,26 @@ def test_window_cloud_capacity_below_window(ref):
 
 
 
-def test_sharded_solve_raises():
-    with pytest.raises(NotImplementedError, match="sharded_solve_pose_graph"):
-        tpg.sharded_solve_pose_graph(None, None, None, None)
+def test_sharded_solve_on_one_rank(ref):
+    """The edge-sharded solve on a one-rank gloo group gives solve_pose_graph's
+    poses bit for bit (one rank: the same sums), as does the solve body with
+    group=None; each held to the reference too. The 2-rank solve is in
+    tests/test_torch_parallel.py."""
+    import torch.distributed as dist
+
+    from agi_lidar_slam_torch.parallel.sharding import make_mesh
+
+    d, out = ref
+    q0, t0, e = d["graphs"]["drifted"]
+    args = (_tpose(q0, t0), torch.tensor(GRAPHS["drifted"], dtype=torch.int32), _tedges(e))
+    plain = _solve(d, "drifted")
+    q, t = tpg._solve_body(args[0].q, args[0].t, args[1], args[2], 5, 30, 1e6, 1e-3,
+                           group=None)
+    assert torch.equal(q, plain.q) and torch.equal(t, plain.t)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        got = tpg.sharded_solve_pose_graph(make_mesh(device="cpu"), *args)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got.q, plain.q) and torch.equal(got.t, plain.t)
+    np.testing.assert_allclose(got.t.numpy(), out["graphs"]["drifted"][1], rtol=0, atol=1e-4)

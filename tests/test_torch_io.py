@@ -256,3 +256,36 @@ def test_viz_server_binds_localhost():
         viz.stop()
     assert VizServer().host == "127.0.0.1"
     assert VizServer(host="0.0.0.0").host == "0.0.0.0"
+
+
+@pytest.mark.parametrize("times", [True, False])
+def test_kitti_to_bag_bytes_equal_reference(tmp_path, monkeypatch, times):
+    """agi_lidar_slam_torch.tools.kitti_to_bag on a 3-scan KITTI sequence
+    (with and without times.txt) writes the bag the reference's
+    tools/kitti_to_bag.py writes, byte for byte, and the port's reader
+    decodes every scan of it."""
+    import runpy
+
+    from agi_lidar_slam_torch.tools import kitti_to_bag
+
+    rng = np.random.default_rng(3)
+    seq = tmp_path / "seq"
+    (seq / "velodyne").mkdir(parents=True)
+    for i in range(3):
+        xyz, inten, _, _ = _sweep(rng, n=300 + 50 * i)
+        np.concatenate([xyz, inten[:, None]], 1).astype(np.float32).tofile(
+            seq / "velodyne" / f"{i:06d}.bin")
+    if times:
+        np.savetxt(seq / "times.txt", [0.0, 0.1037, 0.2071])
+    port, ref = str(tmp_path / "port.bag"), str(tmp_path / "ref.bag")
+    assert kitti_to_bag.main(["--kitti", str(seq), "--out", port]) == 0
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setattr("sys.argv", ["kitti_to_bag.py", "--kitti", str(seq), "--out", ref])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(os.path.join(root, "tools", "kitti_to_bag.py"), run_name="__main__")
+    assert done.value.code == 0
+    with open(port, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    clouds = [trb.decode_pointcloud2(raw) for *_, raw in trb.read_messages(port)]
+    assert [len(c["x"]) for c in clouds] == [300, 350, 400]
+    assert all(np.all((c["time"] >= 0) & (c["time"] <= 0.1)) for c in clouds)

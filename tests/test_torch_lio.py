@@ -522,7 +522,28 @@ def test_lio_step_from_carried_over_state(ref):
     assert all(torch.equal(a, b) for a, b in zip(kept, carried.map))
 
 
-def test_config_and_unported_hook():
+def test_sharded_lio_step_on_two_ranks(ref, tmp_path):
+    """parallel/sharding.sharded_lio_step on two gloo ranks, each with its
+    block of every scan's points, through the 3-scan sequence from the
+    reference's first state: both ranks alike, poses within 5e-3 m of the
+    reference's and the map's occupancy equal after every scan (the JAX
+    package's own tolerance for its sharded LIO step,
+    tests/test_sharding_parity.py:163-165)."""
+    from tests.test_torch_parallel import check_engine_ranks, engine_rank, launch_two
+
+    items = [(*_tflat(ref, i), _twin(ref, i)) for i in range(N_SCANS)]
+    state = convert.lio_state_from_numpy(ref["states"][0], "cpu")
+    ranks = launch_two(engine_rank, ("lio", T_CFG, [(state, items)]), tmp_path)
+    check_engine_ranks(ranks, [r.x.p for r in ref["results"]],
+                       [s.map.occ for s in ref["states"][1:]])
+
+
+def test_config_and_update_hook(ref):
+    """The config conversion, and the multi-device hooks of the LIO step:
+    _process_lio_body with an update_fn that wraps update_iterated, and
+    update_iterated with group=None, each give the plain call's result bit
+    for bit (state, covariance, map and result), from the reference's state
+    after scan 1."""
     t = convert.config_from_reference(CFG)
     assert isinstance(t.map, TMapConfig) and isinstance(t.ieskf, tieskf.IeskfConfig)
     assert t == tlio.LioConfig(map=TMapConfig(sub_voxel=0.4, block_sub=4, log2_slots=15),
@@ -531,19 +552,25 @@ def test_config_and_unported_hook():
     assert convert.config_from_reference(jlio.LioConfig()) == tlio.LioConfig()
     with pytest.raises(TypeError, match="no port config"):
         convert.config_from_reference(dataclasses.make_dataclass("Other", [])())
-    state = tlio.init_lio_state(T_CFG, device="cpu")
-    z = torch.zeros((8, 3))
-    with pytest.raises(NotImplementedError, match="update_fn"):
-        tlio.process_lio_scan(state, z, torch.zeros(8), torch.zeros(8, dtype=torch.bool),
-                              _empty_window(), T_CFG, update_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        tieskf.update_iterated(state.x, state.P, TBatch(z, torch.zeros(8, dtype=torch.bool)),
-                               state.map, T_CFG.map, axis_name="dp")
+    calls = []
+
+    def update_fn(*a, **kw):
+        calls.append(len(a))
+        return tieskf.update_iterated(*a, group=None, **kw)
+
+    carried = convert.lio_state_from_numpy(ref["states"][1], "cpu")
+    plain = tlio.process_lio_scan(carried, *_tflat(ref, 1), _twin(ref, 1), T_CFG)
+    hooked = tlio._process_lio_body(carried, *_tflat(ref, 1), _twin(ref, 1), T_CFG,
+                                    update_fn=update_fn)
+    leaves = [(a, b) for x, y in zip(plain, hooked) for a, b in zip(_leaves(x), _leaves(y))]
+    assert calls == [6] and len(leaves) > 8 and all(torch.equal(a, b) for a, b in leaves)
+    assert int(plain[1].n_matches) > 1000  # a real update on a built map
 
 
-def _empty_window(m=4):
-    return tlio.ImuWindow(torch.zeros((m, 3)), torch.zeros((m, 3)), torch.zeros(m),
-                          torch.zeros(m, dtype=torch.bool))
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for x in tree for leaf in _leaves(x)]
 
 
 ENTRY_POINTS = {

@@ -214,6 +214,24 @@ def test_process_livox_scan_from_carried_over_state(ref):
     assert int(new.frame) == int(jnext.frame)
 
 
+def test_sharded_livox_step_on_two_ranks(ref, tmp_path):
+    """parallel/sharding.sharded_livox_step on two gloo ranks, each with its
+    block of every frame's feature points, through the three window scans
+    from the reference's state at the engagement: both ranks alike, poses
+    within 5e-3 m of the reference's and the surf map's occupancy equal after
+    every scan (the JAX package's own tolerance for its sharded window step,
+    tests/test_sharding_parity.py:186-188)."""
+    from tests.test_torch_parallel import check_engine_ranks, engine_rank, launch_two
+
+    r, k = ref["mode2"], INIT_FRAMES - 1
+    assert r["engaged"][k] and not r["engaged"][k - 1]
+    state = convert.livox_state_from_numpy(r["states"][k], "cpu")
+    items = [_tin(item) for item in ref["items"][k + 1:]]
+    ranks = launch_two(engine_rank, ("livox", T_CFG, [(state, items)]), tmp_path)
+    check_engine_ranks(ranks, [res.pose.t for res in r["results"][k + 1:]],
+                       [r["states"][i].surf_map.occ for i in range(k + 1, N_SCANS)])
+
+
 @pytest.mark.parametrize("mode", [0, 1])
 def test_livox_driver_lidar_only(ref, mode):
     """IMU_Mode 0 (LiDAR-only) and 1 (gyro deskew, then LiDAR-only): never
@@ -227,11 +245,31 @@ def test_livox_driver_lidar_only(ref, mode):
     assert not drv.engaged and drv.init_result is None
 
 
-def test_config_and_unported_hook(ref):
+def test_config_and_solve_hook(ref):
+    """The config conversion, and the multi-device hooks of the window step:
+    _process_livox_body with a solve_fn that wraps solve_window with
+    group=None and a knn_fn wrapping nn.knn.knn gives process_livox_scan's
+    result bit for bit, from the reference's engaged state."""
+    from agi_lidar_slam_torch.estimators import window_map as twm
+    from agi_lidar_slam_torch.nn.knn import knn
+
     assert dataclasses.asdict(T_CFG) == dataclasses.asdict(CFG)
     # the port's defaults are the reference's: LivoxConfig() is bench.py's livox headline
     assert convert.config_from_reference(jlp.LivoxConfig()) == tlp.LivoxConfig()
     assert T_CFG.dynamic.grid == CFG.dynamic.grid == 128
     state = convert.livox_state_from_numpy(ref["mode2"]["states"][INIT_FRAMES], "cpu")
-    with pytest.raises(NotImplementedError, match="solve_fn"):
-        tlp._process_livox_body(state, *_tin(ref["items"][0]), T_CFG, solve_fn=lambda *a: None)
+    calls = []
+
+    def knn_fn(*a, **kw):
+        calls.append("knn")
+        return knn(*a, **kw)
+
+    def solve_fn(*a, **kw):
+        calls.append("solve")
+        return twm.solve_window(*a, group=None, knn_fn=knn_fn, **kw)
+
+    plain = tlp.process_livox_scan(state, *_tin(ref["items"][0]), T_CFG)
+    hooked = tlp._process_livox_body(state, *_tin(ref["items"][0]), T_CFG, solve_fn=solve_fn)
+    pl, hk = jax.tree.leaves(plain), jax.tree.leaves(hooked)
+    assert len(pl) == len(hk) > 20 and all(torch.equal(a, b) for a, b in zip(pl, hk))
+    assert calls[0] == "solve" and calls.count("knn") >= 3

@@ -367,7 +367,9 @@ def _banks(seed=0):
 
 def test_multisession_merge_matches_reference():
     """merge_banks, odometry_edges, cross_session_candidates and the merged
-    map of a 16-keyframe merged bank: exact."""
+    map of a 16-keyframe merged bank: exact; the merged map built slot-sharded
+    on a one-rank gloo mesh is the same map (the 2-rank map is in
+    tests/test_torch_parallel.py)."""
     jb, tb = _banks()
     (jm, jsid), (tm, tsid) = jms.merge_banks(jb, capacity=16), tms.merge_banks(tb, capacity=16)
     np.testing.assert_array_equal(tsid, jsid)
@@ -382,8 +384,16 @@ def test_multisession_merge_matches_reference():
     np.testing.assert_array_equal(tmap.keys.numpy(), np.asarray(jmap.keys))
     np.testing.assert_array_equal(tmap.occ.numpy(), np.asarray(jmap.occ))
     assert int(tmap.num_points()) > 300
-    with pytest.raises(NotImplementedError):
-        tms.build_merged_map(tm, port_cfg(mcfg), mesh=object())
+    import torch.distributed as dist
+
+    from agi_lidar_slam_torch.parallel.distributed import make_mesh_2d
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        smap = tms.build_merged_map(tm, port_cfg(mcfg), mesh=make_mesh_2d(device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(smap, tmap))
 
 
 def test_multisession_merge_sessions_runs():

@@ -123,25 +123,61 @@ def test_one_step_from_carried_over_state():
     assert int(state.surf_map.num_points()) > int(carried.surf_map.num_points())
 
 
-def test_unported_pipeline_branches_raise():
-    """The multi-chip hooks of both scan-to-map solvers are not ported and
-    raise (the odometry stage and the two-step solver run: their parity is
-    in tests/test_torch_presets.py and tests/test_torch_lego.py)."""
-    state = tpipe.init_state(T_CFG, "cpu")
-    pts = PointBatch(torch.zeros((8, 3)), torch.ones((8,), dtype=torch.bool))
-    args = (state.pose, pts, pts, state.corner_map, state.surf_map, T_CFG.corner_map,
-            T_CFG.surf_map, T_CFG.solver)
+def test_pipeline_hooks_match_plain_call():
+    """The multi-device hooks of the scan step and both scan-to-map solvers:
+    group=None runs the plain code, a knn_fn that wraps nn.knn.knn gives its
+    result, and _process_scan_body with its solver, insert and bound
+    operations wrapped gives process_scan's result: each bit for bit, on
+    the slice's scans (the odometry stage and the two-step solver have their
+    parity in tests/test_torch_presets.py and tests/test_torch_lego.py)."""
+    from agi_lidar_slam_torch.map.hash_map import bound_map, insert_with_stats
+    from agi_lidar_slam_torch.nn.knn import knn
+
+    scans, states, results = _reference_run()
+    state = state_from_numpy(states[2], "cpu")
+    res = results[1]
+    def t(tree):
+        return [torch.from_numpy(np.array(a)) for a in tree]
+
+    feats = PointBatch(*t(res.corners)), PointBatch(*t(res.surfs))
+    args = (tpipe.se3.Pose(*t(res.pose)), *feats, state.corner_map,
+            state.surf_map, T_CFG.corner_map, T_CFG.surf_map, T_CFG.solver)
+    calls = []
+
+    def wrap(fn):
+        def inner(*a, **kw):
+            calls.append(fn.__name__)
+            return fn(*a, **kw)
+        inner.__name__ = fn.__name__
+        return inner
+
+    def same(x, y):
+        xs, ys = jax.tree.leaves(x), jax.tree.leaves(y)
+        return len(xs) == len(ys) and all(torch.equal(a, b) for a, b in zip(xs, ys))
+
     for solve in (solve_scan2map, solve_scan2map_two_step):
-        for hook, value in (("axis_name", "points"), ("knn_fn", lambda *a: None)):
-            with pytest.raises(NotImplementedError, match=hook):
-                solve(*args, **{hook: value})
+        plain = solve(*args)
+        assert same(solve(*args, group=None), plain)
+        assert same(solve(*args, knn_fn=wrap(knn)), plain) and calls.count("knn") >= 2
+    assert int(plain[1].n_surf) > 100  # a real solve on a built map
+
+    calls.clear()
+    step, res_plain = tpipe.process_scan(state, _tscan(scans[2]), T_CFG)
+    hooked = tpipe._process_scan_body(
+        state, _tscan(scans[2]), T_CFG, solve_fn=wrap(solve_scan2map),
+        solve_two_fn=wrap(solve_scan2map_two_step), insert_fn=wrap(insert_with_stats),
+        bound_fn=wrap(bound_map))
+    assert same(hooked, (step, res_plain))
+    assert sorted(calls) == ["bound_map"] * 2 + ["insert_with_stats"] * 2 + ["solve_scan2map"]
 
 
 def test_port_never_imports_jax():
     """In a fresh interpreter where `jax` and the JAX package cannot be
-    imported, every module of the port and chip_smoke.py import, and one CPU
-    scan of each engine (odometry with octant8 maps, so the kernel module
-    too, LIO, and the slam and LIO-SAM drivers, no closure) runs, two of the
+    imported, every module of the port (parallel/* included) and
+    chip_smoke.py import, and one CPU scan of each engine (odometry with
+    octant8 maps, so the kernel module too, and the same scan through the
+    point-sharded step on a one-rank gloo group, LIO, and the slam and
+    LIO-SAM drivers, no closure) runs, two of the
     A-LOAM and LeGO reference presets (the odometry stage, segmentation and
     the two-step solve), three of the livox driver (through its engagement
     and one window scan) and two simulator sweeps through the runner
@@ -167,6 +203,14 @@ def test_port_never_imports_jax():
         state, res = process_scan(init_state(cfg, "cpu"),
                                   simulate_scan(world, p, p, rings=16, width=900), cfg)
         assert bool(torch.isfinite(res.pose.t).all())
+        import torch.distributed as dist
+        from agi_lidar_slam_torch.parallel import distributed as pdist, sharding
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        _, dres = sharding.sharded_scan_step(sharding.make_mesh(device="cpu"),
+                                             init_state(cfg, "cpu"),
+                                             simulate_scan(world, p, p, rings=16, width=900), cfg)
+        dist.destroy_process_group()
+        assert torch.equal(dres.pose.t, res.pose.t) and pdist.collectives > 0
         from agi_lidar_slam_torch.presets import preset_aloam_kitti64_ref, preset_lego_vlp16_ref
         for ref_cfg in (preset_aloam_kitti64_ref(), preset_lego_vlp16_ref()):
             rstate = init_state(ref_cfg, "cpu")

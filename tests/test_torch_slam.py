@@ -284,6 +284,23 @@ def test_liosam_step_from_carried_over_state(ref):
     assert int(res.stats.n_surf) > 100
 
 
+def test_sharded_liosam_step_on_two_ranks(ref, tmp_path):
+    """parallel/sharding.sharded_liosam_step on two gloo ranks, each with its
+    block of every scan's feature points, one step from each of the
+    reference driver's states: both ranks alike, poses within 5e-3 m of the
+    reference's and the surf map's occupancy equal (the JAX package's own
+    tolerance for its sharded LIO-SAM step,
+    tests/test_sharding_parity.py:211-213)."""
+    from tests.test_torch_parallel import check_engine_ranks, engine_rank, launch_two
+
+    r = ref["liosam"]
+    runs = [(convert.liosam_state_from_numpy(r["states"][i], "cpu"), [(_scan(s), _win(w))])
+            for i, (s, w) in enumerate(ref["lio"])]
+    ranks = launch_two(engine_rank, ("liosam", T_LIOSAM, runs), tmp_path)
+    check_engine_ranks(ranks, [res.pose.t for res in r["results"]],
+                       [st.engine.surf_map.occ for st in r["states"][1:]])
+
+
 def test_liosam_driver(ref):
     """LioSamDriver over 4 scans on the circle with the IMU-rate stream on and
     a GPS fix on scan 1, then its synchronous loop-closure entry."""
