@@ -38,6 +38,7 @@ from ..map.planar import build_ktab
 from ..nn.knn import _first_k, knn, knn_cand, knn_reselect, make_cand
 from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
+from .sym_eig import sym_eig
 
 
 class GnStats(NamedTuple):
@@ -227,8 +228,9 @@ def solve_delta(H: torch.Tensor, g: torch.Tensor, cfg: SolverConfig):
     """Degeneracy-aware 6x6 solve: eigen-decompose H and zero the update along
     eigendirections with eigenvalue below the threshold (LIO-SAM
     LMOptimization). Eigenvector signs differ between libraries; delta does
-    not depend on them."""
-    vals, vecs = torch.linalg.eigh(H)  # ascending
+    not depend on them. The eigendecomposition is `sym_eig`: on the card a
+    kernel that reads nothing back to the host."""
+    vals, vecs = sym_eig(H)  # ascending
     good = vals > cfg.degen_eig_thresh
     inv = torch.where(good, 1.0 / torch.where(good, vals, torch.ones_like(vals)),
                       torch.zeros_like(vals))

@@ -14,7 +14,8 @@ dtheta_y, dtheta_z, dt_x, dt_y, dt_z):
   surf step   -> indices (0, 1, 5) = roll, pitch, z
   corner step -> indices (2, 3, 4) = yaw, x, y
 Every inner iteration takes the surf step, then the corner step linearized
-at the pose after it. Each step's 3x3 eigh reads back to the host on CUDA.
+at the pose after it. Each step's 3x3 eigendecomposition is `sym_eig`: on
+the card a kernel that reads nothing back to the host.
 
 `group` (the reference's `axis_name`) and `knn_fn` shard the point axis and
 the map exactly as in gn_scan2map.solve_scan2map: each step's partial sums
@@ -31,6 +32,7 @@ from ..map.hash_map import HashVoxelMap
 from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
 from .gn_scan2map import GnStats, _ktab, associate, normal_equations
+from .sym_eig import sym_eig
 
 _SURF_IDX = (0, 1, 5)
 _CORNER_IDX = (2, 3, 4)
@@ -49,7 +51,7 @@ def _solve_subset(H: torch.Tensor, g: torch.Tensor, idx: tuple, eig_thresh: floa
     Unlike solve_delta there is no translation clip."""
     Hs = _take(_take(H, idx, 0), idx, 1)
     gs = _take(g, idx, 0)
-    vals, vecs = torch.linalg.eigh(Hs)
+    vals, vecs = sym_eig(Hs)
     good = vals > eig_thresh
     inv = torch.where(good, 1.0 / torch.where(good, vals, torch.ones_like(vals)),
                       torch.zeros_like(vals))

@@ -134,6 +134,13 @@ def _first_empty(keys: torch.Tensor, bc: torch.Tensor, cfg: MapConfig) -> torch.
     return slot.reshape(bc.shape[:-1])
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether `t` is a CUDA tensor and the current stream is capturing a CUDA
+    graph, in which no value may be read back to the host. (CPU builds of
+    torch raise on the capture query, so CPU tensors never ask.)"""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def lookup_dedup(keys: torch.Tensor, bc: torch.Tensor, valid: torch.Tensor,
                  cfg: MapConfig, claim: bool = False):
     """`lookup` with cross-batch deduplication: distinct block coords are
@@ -146,8 +153,14 @@ def lookup_dedup(keys: torch.Tensor, bc: torch.Tensor, valid: torch.Tensor,
     conflict rounds (owner elected by scatter-min of the unique id); returns
     (new keys, slot) then.
 
-    The claim loop reads one flag back to the host per round to decide
-    whether another round is needed."""
+    Eagerly, the claim loop reads one flag back to the host per round to
+    decide whether another round is needed. While the current CUDA stream is
+    being captured into a graph (runtime/pipeline.process_scan_chunk) it
+    cannot read, and runs all `claim_rounds` rounds. That gives the same keys
+    bit for bit: once no block attempted and lost, `attempt` in the next
+    round would select exactly the blocks that just won, but those now hold
+    a slot (`uslot >= 0`), so no block attempts, and every write goes to the
+    dump row and writes back that row's own value."""
     K = bc.shape[0]
     dev = bc.device
     U = min(K, max(K // 2, 4096))
@@ -192,8 +205,9 @@ def lookup_dedup(keys: torch.Tensor, bc: torch.Tensor, valid: torch.Tensor,
             return kys, torch.any(attempt & ~winner)
 
         keys, unresolved = claim_round(keys)
+        every_round = _capturing(keys)
         rnd = 1
-        while rnd < cfg.claim_rounds and bool(unresolved):
+        while rnd < cfg.claim_rounds and (every_round or bool(unresolved)):
             keys, unresolved = claim_round(keys)
             rnd += 1
 

@@ -11,7 +11,14 @@ put it on (cuda unless asked otherwise).
 previous scan's features, inserted each scan into two throwaway maps of
 `odom_map`, and starts the scan-to-map solve from its estimate; `two_step`
 takes LeGO-LOAM's two-step solver (estimators/two_step.py) for the
-scan-to-map solve. `process_scan_chunk` (a launch batcher) is not ported.
+scan-to-map solve.
+
+`process_scan_chunk` runs C scans as one call, the reference's `lax.scan`
+launch batcher: on the card it replays one CUDA graph that holds all C scan
+bodies, so the host issues one graph launch a chunk and reads nothing back
+(the scan body has no host read while it is captured: the Gauss-Newton
+eigendecomposition is a kernel, estimators/sym_eig.py, and the map's claim
+rounds run to their bound, map/hash_map.lookup_dedup).
 
 `_process_scan_body` takes the solver, insert and bound operations as
 arguments, so the multi-device steps (parallel/sharding.py) run this same
@@ -20,10 +27,13 @@ body with the point axis sharded (dp) or the map slot-sharded (mp).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
+from .. import _build
 from ..config import PipelineConfig
 from ..device import default_device
 from ..estimators.gn_scan2map import GnStats, solve_scan2map
@@ -73,6 +83,15 @@ def init_state(cfg: PipelineConfig, device=None) -> EngineState:
         prev_corners=batch(f.max_corners),
         prev_surfs=batch(f.max_surfs),
     )
+
+
+def deskew_constant_velocity(scan: ScanGrid, rel: se3.Pose) -> ScanGrid:
+    """Whole-grid constant-velocity deskew (A-LOAM TransformToStart applied to
+    every point of the sweep at its time). The scan body does not use it: it
+    extracts features on the distorted sweep and the solver deskews the
+    features at every association pass. Kept for grid-level consumers."""
+    xyz = se3.apply_interpolated(rel, scan.time.reshape(-1), scan.xyz.reshape(-1, 3))
+    return ScanGrid(xyz.reshape(scan.xyz.shape), scan.mask, scan.time)
 
 
 def _process_scan_body(
@@ -165,6 +184,98 @@ def process_scan(state: EngineState, scan: ScanGrid,
     """Process one sweep; returns (new state, result). `state` is not
     modified: the maps of the new state are new tensors."""
     return _process_scan_body(state, scan, cfg)
+
+
+def _stack(trees: list):
+    """Trees of one structure -> one tree of the leaves stacked on a new
+    leading axis (what `lax.scan` makes of its per-step outputs)."""
+    leaves = [pytree.tree_flatten(t)[0] for t in trees]
+    spec = pytree.tree_flatten(trees[0])[1]
+    return pytree.tree_unflatten([torch.stack(ls) for ls in zip(*leaves)], spec)
+
+
+def _scan_at(scans: ScanGrid, i: int) -> ScanGrid:
+    return ScanGrid(*(a[i] for a in scans))
+
+
+def _run_chunk(state: EngineState, scans: ScanGrid, cfg: PipelineConfig):
+    results = []
+    for i in range(scans.xyz.shape[0]):
+        state, res = process_scan(state, _scan_at(scans, i), cfg)
+        results.append(res)
+    return state, _stack(results)
+
+
+class ChunkGraph:
+    """One CUDA graph of C scan bodies on static copies of a state and a
+    chunk of scans. `run` copies its arguments into them, replays the graph
+    and returns clones of the outputs, so a result outlives the next replay.
+
+    Before the capture, one scan body runs eagerly on a side stream (as
+    torch requires before a capture): it builds the kernel library and sets
+    up what the kernels and libraries set up on their first call. Every
+    tensor the body allocates while captured lives in the graph's private
+    memory pool, whose size is `pool_bytes`; `capture_s` is the host time of
+    the warm-up and the capture."""
+
+    def __init__(self, state: EngineState, scans: ScanGrid, cfg: PipelineConfig):
+        dev = scans.xyz.device
+        t0 = time.perf_counter()
+        self.inputs = pytree.tree_map(torch.clone, (state, scans))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _build.load()
+            process_scan(self.inputs[0], _scan_at(self.inputs[1], 0), cfg)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        # the capture empties the allocator's cache as it starts; empty it
+        # first, so that the growth across the capture is the pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        with torch.cuda.graph(self.graph):
+            self.outputs = _run_chunk(*self.inputs, cfg)
+        torch.cuda.synchronize(dev)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, state: EngineState, scans: ScanGrid):
+        for dst, src in zip(pytree.tree_flatten(self.inputs)[0],
+                            pytree.tree_flatten((state, scans))[0]):
+            dst.copy_(src)
+        self.graph.replay()
+        return pytree.tree_map(torch.clone, self.outputs)
+
+
+# the ChunkGraphs captured so far, by (config, (C, *grid shape), state leaves'
+# shapes and types, device)
+chunk_graphs: dict = {}
+
+
+def process_scan_chunk(state: EngineState, scans: ScanGrid,
+                       cfg: PipelineConfig) -> Tuple[EngineState, ScanResult]:
+    """Process a chunk of C scans (`scans` with a leading axis C) as C
+    process_scan calls would, and return (the state after the last, the C
+    ScanResults stacked on a leading axis), as the reference's `lax.scan`
+    does. `state` is not modified.
+
+    On CPU tensors it runs the scan body C times. On the card it replays one
+    CUDA graph of all C bodies: the graph is captured at the first call for a
+    config, C, grid shape, state shapes and device, and replayed by later
+    ones (one graph launch a chunk, no read back to the host). Nothing falls
+    back: a body that reads the host while captured fails to capture and
+    raises torch's error."""
+    if scans.xyz.device.type != "cuda":
+        return _run_chunk(state, scans, cfg)
+    dev = scans.xyz.device
+    key = (cfg, tuple(scans.xyz.shape),
+           tuple((tuple(x.shape), x.dtype) for x in pytree.tree_flatten(state)[0]), dev)
+    graph = chunk_graphs.get(key)
+    if graph is None:
+        graph = ChunkGraph(state, scans, cfg)
+        chunk_graphs[key] = graph
+    return graph.run(state, scans)
 
 
 def run_sequence(scans, cfg: PipelineConfig, state: EngineState | None = None):

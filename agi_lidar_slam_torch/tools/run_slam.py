@@ -20,7 +20,10 @@ codes (0 within the envelope, 2 on a breach), as the reference runner does.
 
 The engines run on `--device` (default cuda; without a card a run raises
 unless given `--device cpu`). Each scan's pose and metrics come to the host
-in one read. `--viz` (the PNG renderer) is not ported yet.
+in one read. `--viz PNG` renders the trajectory, map and metrics the run
+wrote (tools/visualize.py) after a KITTI, simulator (odom, slam) or bag run,
+as the reference runner does; it needs matplotlib, and without it the run
+raises an ImportError before it starts.
 """
 
 from __future__ import annotations
@@ -248,8 +251,7 @@ def _parser() -> argparse.ArgumentParser:
                          "(detectLoopClosureExternal analog; slam engine). "
                          "Pairs are verified by submap alignment before the "
                          "edge is added, then applied at end of stream")
-    ap.add_argument("--viz", help="render trajectory/metrics PNG after the run "
-                                  "(not ported yet: raises)")
+    ap.add_argument("--viz", help="render trajectory/metrics PNG after the run")
     ap.add_argument("--live-viz", type=int, metavar="PORT",
                     help="serve the live rviz-analog viewer (SSE + embedded "
                          "canvas page, io/live_viz.py) on this port of 127.0.0.1")
@@ -282,9 +284,9 @@ def run(argv) -> dict:
     args = ap.parse_args(argv)
     args.argv = argv
     if args.viz:
-        raise NotImplementedError(
-            "--viz (tools/visualize.py, the PNG renderer) is not ported to the torch "
-            "runner yet; it is left for a later slice (ROADMAP Queue 1)")
+        from .visualize import require_matplotlib
+
+        require_matplotlib()  # fail before the run, not after it
     args.device = torch.device(args.device)
     if args.device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here; pass "
@@ -490,6 +492,7 @@ def _run_feature(args, cfg, scans, gt_positions, gt_quats) -> dict:
         save_map_bundle(args.save_map, state, trajectory=est)
         print("maps written:", args.save_map)
     metrics.close()
+    _maybe_viz(args)
     return {**record, "summary": summary, "rc": _gate_exit(args, summary)}
 
 
@@ -926,10 +929,21 @@ def _run_bag(args) -> dict:
         export_pcd(os.path.join(args.save_map, "trajectory.pcd"), est)
         print("maps written:", args.save_map)
     metrics.close()
+    _maybe_viz(args)
     # bag runs carry no ground truth; the gate covers scan count/throughput
     # (an envelope naming an accuracy metric fails loudly, never vacuously)
     summary = {"n_scans": n, "scans_per_s": n / wall}
     return {**record, "summary": summary, "rc": _gate_exit(args, summary)}
+
+
+def _maybe_viz(args) -> None:
+    """--viz: render what the run wrote (trajectory, metrics, maps) into the
+    PNG; as in the reference, a drawing with no input only prints so."""
+    if not args.viz:
+        return
+    from .visualize import render
+
+    render(args.viz, traj=args.traj_out, map_path=args.save_map, metrics=args.metrics)
 
 
 def _save_imu_rate(path: str, stream: list, capacity: int) -> None:

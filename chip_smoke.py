@@ -46,6 +46,27 @@ Phases, each printing its own lines:
                captured for phase 25), then the host syncs of each scan in a
                second, untimed run;
   6. cpu     — the same scans with CPU tensors, poses compared with the card's;
+ 6a. eig     — the kernel phase's part for the sym_eig kernel (after main,
+               whose Gauss-Newton systems it reuses): the kernel against its
+               plain version (torch.linalg.eigh on the card) on random SPD
+               batches of 6x6 and 3x3, on exactly and nearly repeated
+               eigenvalues, on rank-deficient matrices, on the 8 systems of
+               the main phase's last scan (each alone, as the path calls it,
+               and as one batch) and on a NaN matrix: eigenvalues,
+               reconstruction V diag(w) V^T, orthonormality, and on the main
+               phase's systems solve_delta's step against the step with the
+               plain version; device times, times with a sync each call,
+               the library call's time and the bound;
+ 6b. chunk   — runtime.pipeline.process_scan_chunk on the main phase's 12
+               scans as 3 chunks of 4, each a replay of one CUDA graph: poses
+               within 1e-6 m of the main phase's sequential poses on this
+               card with equal correspondence counts, no host sync in a
+               replay, one graph launch a chunk, the kernels' launches while
+               capturing, capture seconds and the graph pool's bytes, scans/s
+               chunked against sequential (in turns), the card's busy share
+               during a replay; then one chunk of 2 scans for every other
+               PipelineConfig preset (config.py and presets.py), against the
+               same preset's sequential run on the card;
   7. lio     — LioConfig() over 64x1800 scans and 200 Hz exact IMU windows on
                bench.py's circle (radius 8 m, 0.25 rad/s, world seed 3), through
                runtime.lio_pipeline.process_lio_scan: finite state, the kernel
@@ -202,7 +223,7 @@ import torch.distributed as dist
 
 from agi_lidar_slam_torch import _build, config, preset_aloam_kitti64, presets
 from agi_lidar_slam_torch.config import MapConfig
-from agi_lidar_slam_torch.estimators import ieskf, two_step, window_map
+from agi_lidar_slam_torch.estimators import gn_scan2map, ieskf, sym_eig, two_step, window_map
 from agi_lidar_slam_torch.eval.metrics import ate_rmse, kitti_drift, rpe_rmse
 from agi_lidar_slam_torch.features import curvature, segmentation
 from agi_lidar_slam_torch.geometry import se3, so3
@@ -289,6 +310,16 @@ SQ_TOL, PTS_TOL = 3e-6, 1e-5
 GATHER_RTOL = 1e-6
 # card vs CPU poses over the run (f32 reductions in another order)
 POSE_T_TOL, POSE_Q_TOL = 1e-3, 1e-3
+# sym_eig against torch.linalg.eigh on the card, relative to each matrix's
+# largest entry: float32 eigensolvers err by a few n * 2**-24 of it (eigh
+# itself about 1e-6 at n = 6 on the CPU; the kernel, fp64 inside, rounds once)
+EIG_TOL = 1e-5
+# solve_delta's step with the kernel against the step with eigh: the step
+# amplifies the eigensolvers' f32 errors by the kept eigenvalues' condition
+# number (up to 1e4 on the odometry's systems): 1e-3 relative, 1e-6 m absolute
+DELTA_RTOL, DELTA_ATOL = 1e-3, 1e-6
+CHUNK = 4  # scans a chunk of the chunk phase
+CHUNK_POSE_TOL = 1e-6  # m: chunked against sequential on one card
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
@@ -868,23 +899,29 @@ def phase_main(device) -> dict:
     scans, gt = make_scans(device)
     state = moving_start(cfg, device)
     torch.cuda.synchronize()
-    results, marks, calls = [], [torch.cuda.Event(enable_timing=True)], []
-    octant_knn.launches = 0
+    results, marks, calls, solves = [], [torch.cuda.Event(enable_timing=True)], [], []
+    octant_knn.launches = sym_eig.launches = 0
     marks[0].record()
     for i, s in enumerate(scans):
-        with (captured_knn_calls(calls) if i == N_SCANS - 1 else contextlib.nullcontext()):
+        last = i == N_SCANS - 1
+        with (captured_knn_calls(calls) if last else contextlib.nullcontext()), \
+                (captured_solves(solves) if last else contextlib.nullcontext()):
             state, res = process_scan(state, s, cfg)
         marks.append(torch.cuda.Event(enable_timing=True))
         marks[-1].record()
         torch.cuda.synchronize()
         results.append(res)
-    launches = octant_knn.launches
+    launches, eig_launches = octant_knn.launches, sym_eig.launches
     first_ms = marks[0].elapsed_time(marks[1])
     # the last scan copies its kernel calls' arguments: outside the window
     steady = (N_SCANS - 1 - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-2])
 
     if launches != 4 * N_SCANS:
         raise AssertionError(f"octant KNN launched {launches} times, expected {4 * N_SCANS}")
+    n_solves = cfg.solver.n_outer * cfg.solver.n_inner
+    if eig_launches != n_solves * N_SCANS:
+        raise AssertionError(f"sym_eig launched {eig_launches} times, expected "
+                             f"{n_solves * N_SCANS} ({n_solves} Gauss-Newton steps a scan)")
     est = np.stack([r.pose.t.cpu().numpy() for r in results])
     quats = np.stack([r.pose.q.cpu().numpy() for r in results])
     if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))):
@@ -893,7 +930,8 @@ def phase_main(device) -> dict:
     n_corner = [int(r.stats.n_corner) for r in results]
     rms = [float(r.stats.rms) for r in results]
     log(f"main: {N_SCANS} scans {RINGS}x{WIDTH} points/scan={int(scans[0].mask.sum())} "
-        f"octant_knn launches={launches} n_corner={n_corner} n_surf={n_surf}")
+        f"octant_knn launches={launches} sym_eig launches={eig_launches} n_corner={n_corner} "
+        f"n_surf={n_surf}")
     if min(n_surf[1:]) < 100:
         raise AssertionError(f"too few surf correspondences once the map exists: {n_surf}")
     if max(rms[1:]) >= 0.1:
@@ -912,7 +950,8 @@ def phase_main(device) -> dict:
             state, _ = process_scan(state, s, cfg)
     log(f"main: host syncs per scan {syncs} (sync debug mode); by call site: "
         f"{dict(sync_sites.most_common())}")
-    return {"launches": launches, "scans": scans, "gt": gt, "results": results, "ate": ate,
+    return {"launches": launches, "eig_launches": eig_launches, "solves": solves,
+            "scans": scans, "gt": gt, "results": results, "ate": ate,
             "scans_per_s": steady, "calls": calls, "syncs": syncs,
             "sync_sites": dict(sync_sites)}
 
@@ -934,6 +973,355 @@ def phase_cpu(main: dict) -> None:
         f"max |dt|={worst_t:.3g} m, max |dq|={worst_q:.3g}")
     if worst_t > POSE_T_TOL or worst_q > POSE_Q_TOL:
         raise AssertionError("card and CPU poses disagree")
+
+
+@contextlib.contextmanager
+def captured_solves(solves: list):
+    """While open, record a copy of the arguments (H, g, solver config) of
+    every gn_scan2map.solve_delta call."""
+    real = gn_scan2map.solve_delta
+
+    def wrapper(H, g, cfg):
+        solves.append((H.clone(), g.clone(), cfg))
+        return real(H, g, cfg)
+
+    gn_scan2map.solve_delta = wrapper
+    try:
+        yield solves
+    finally:
+        gn_scan2map.solve_delta = real
+
+
+def synced_ms(fn, reps: int = 50) -> float:
+    """Median host milliseconds of fn() followed by torch.cuda.synchronize():
+    what a caller that needs the result on the host pays."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def lower_sym(a: torch.Tensor) -> torch.Tensor:
+    """The symmetric matrix whose lower triangle is a's (what eigh reads)."""
+    lo = torch.tril(a)
+    return lo + torch.tril(a, -1).transpose(-1, -2)
+
+
+def eig_check(label: str, a: torch.Tensor) -> dict:
+    """sym_eig against torch.linalg.eigh on the same (B, n, n) matrices:
+    eigenvalues, reconstruction and orthonormality, each as the largest
+    error over the batch relative to each matrix's largest entry; raises
+    above EIG_TOL."""
+    vals, vecs = sym_eig.sym_eig(a)
+    pvals, pvecs = sym_eig.sym_eig_ref(a)
+    torch.cuda.synchronize()
+    full = lower_sym(a)
+    scale = full.abs().amax(dim=(-2, -1)).clamp_min(1e-30)
+    eye = torch.eye(a.shape[-1], device=a.device)
+
+    def rec_orth(w, v):
+        rec = ((v * w[..., None, :]) @ v.transpose(-1, -2) - full).abs().amax(dim=(-2, -1))
+        orth = (v.transpose(-1, -2) @ v - eye).abs().amax(dim=(-2, -1))
+        return float((rec / scale).max()), float(orth.max())
+
+    rec = {"vals": float(((vals - pvals).abs().amax(-1) / scale).max()),
+           "vals_abs": float((vals - pvals).abs().max()),
+           "ascending": bool((vals[..., 1:] >= vals[..., :-1]).all())}
+    rec["rec"], rec["orth"] = rec_orth(vals, vecs)
+    rec["plain_rec"], rec["plain_orth"] = rec_orth(pvals, pvecs)
+    log(f"kernel sym_eig {label}: {tuple(a.shape)}: eigenvalues {rec['vals']:.3g} of the "
+        f"largest entry from eigh's, reconstruction {rec['rec']:.3g} (eigh "
+        f"{rec['plain_rec']:.3g}), orthonormality {rec['orth']:.3g} (eigh "
+        f"{rec['plain_orth']:.3g})")
+    if not (rec["ascending"] and max(rec["vals"], rec["rec"], rec["orth"]) <= EIG_TOL):
+        raise AssertionError(f"sym_eig {label}: {rec} beyond EIG_TOL {EIG_TOL}")
+    return rec
+
+
+def eig_inputs(rng: np.random.Generator) -> dict:
+    """Batches of symmetric matrices, made in float64 and rounded once."""
+    out = {}
+    for n in (6, 3):  # normal equations J^T J with entries up to 1e6
+        J = rng.normal(size=(4096, 3 * n, n)) * rng.uniform(1, 300, (4096, 1, 1))
+        out[f"spd{n}"] = J.transpose(0, 2, 1) @ J
+    Q = np.linalg.qr(rng.normal(size=(512, 6, 6)))[0]
+    d = np.sort(rng.choice([1.0, 50.0, 1e4], size=(512, 6)), axis=1)
+    out["repeated6"] = (Q * d[:, None, :]) @ Q.transpose(0, 2, 1)  # repeated up to rounding
+    out["diag_repeated6"] = np.stack([np.diag(x) for x in d[:64]])  # exactly repeated
+    Q3 = np.linalg.qr(rng.normal(size=(512, 3, 3)))[0]
+    d3 = np.sort(rng.choice([1.0, 1e3], size=(512, 3)), axis=1)
+    out["repeated3"] = (Q3 * d3[:, None, :]) @ Q3.transpose(0, 2, 1)
+    J = rng.normal(size=(1024, 6, 4)) * 100.0
+    out["rank4of6"] = J @ J.transpose(0, 2, 1)
+    J3 = rng.normal(size=(1024, 3, 2)) * 100.0
+    out["rank2of3"] = J3 @ J3.transpose(0, 2, 1)
+    return {k: 0.5 * (v + v.transpose(0, 2, 1)) for k, v in out.items()}
+
+
+def plain_solve_delta(H, g, cfg):
+    """solve_delta with the plain eigendecomposition (torch.linalg.eigh)."""
+    real = gn_scan2map.sym_eig
+    gn_scan2map.sym_eig = sym_eig.sym_eig_ref
+    try:
+        return gn_scan2map.solve_delta(H, g, cfg)
+    finally:
+        gn_scan2map.sym_eig = real
+
+
+def phase_eig(device, main: dict) -> dict:
+    """The sym_eig kernel against its plain version (eig_check) on the
+    synthetic batches, on the main phase's last-scan systems and on a NaN
+    matrix; solve_delta's step with the kernel against the step with the
+    plain version on those systems; then device times at the path's shape
+    (one 6x6 matrix a call) and at 4096 matrices, the same with a sync each
+    call, torch.linalg.eigh's times (the library call) and the bounds."""
+    rng = np.random.default_rng(SEED)
+    cases = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+             for k, v in eig_inputs(rng).items()}
+    solves = main["solves"]
+    if len(solves) != 8:
+        raise AssertionError(f"captured {len(solves)} solve_delta calls of the last main "
+                             "scan, expected 8")
+    path_H = torch.stack([H for H, _, _ in solves])
+    out = {"cases": {k: eig_check(k, a) for k, a in cases.items()}}
+    out["cases"]["path_batch"] = eig_check("path_batch", path_H)
+    for j, (H, _, _) in enumerate(solves):
+        out["cases"][f"path{j}"] = eig_check(f"path{j}", H)
+    bad = cases["spd6"][:4].clone()
+    bad[1, 3, 2] = float("nan")
+    w, v = sym_eig.sym_eig(bad)
+    torch.cuda.synchronize()
+    if not (bool(torch.isnan(w[1]).all()) and bool(torch.isnan(v[1]).all())
+            and bool(torch.isfinite(w[[0, 2, 3]]).all())):
+        raise AssertionError("sym_eig: a NaN matrix must give NaN, and only in its own outputs")
+    log("kernel sym_eig nan: the NaN matrix's outputs are all NaN, its neighbours' finite")
+
+    worst, worst64, plain64, skipped = 0.0, 0.0, 0.0, 0
+    for H, g, cfg in solves:
+        dk, degk = gn_scan2map.solve_delta(H, g, cfg)
+        dp, degp = plain_solve_delta(H, g, cfg)
+        w64, v64 = torch.linalg.eigh(lower_sym(H).double())
+        if bool(((w64 - cfg.degen_eig_thresh).abs() < 1e-4 * w64.abs().max()).any()):
+            skipped += 1  # an eigenvalue on the threshold: either choice is right
+            continue
+        good = w64 > cfg.degen_eig_thresh
+        inv = torch.where(good, 1.0 / torch.where(good, w64, torch.ones_like(w64)),
+                          torch.zeros_like(w64))
+        d64 = -(v64 * inv[None, :]) @ (v64.T @ g.double())
+        d64 = d64 * torch.clamp(cfg.translation_clip / torch.clamp(
+            torch.linalg.vector_norm(d64[3:]), min=1e-12), max=1.0)
+        err = float(torch.linalg.vector_norm(dk - dp))
+        if bool(degk) != bool(degp) or not err <= DELTA_RTOL * float(
+                torch.linalg.vector_norm(dp)) + DELTA_ATOL:
+            raise AssertionError(f"solve_delta with sym_eig: step {dk.tolist()} against "
+                                 f"{dp.tolist()} with eigh (degenerate {bool(degk)}, "
+                                 f"{bool(degp)})")
+        worst = max(worst, err)
+        worst64 = max(worst64, float(torch.linalg.vector_norm(dk.double() - d64)))
+        plain64 = max(plain64, float(torch.linalg.vector_norm(dp.double() - d64)))
+    out["delta"] = {"max_err": worst, "kernel_vs_fp64": worst64, "plain_vs_fp64": plain64,
+                    "skipped_on_threshold": skipped}
+    log(f"kernel sym_eig solve_delta: {len(solves) - skipped} steps of the main phase's last "
+        f"scan, |step - eigh's step| at most {worst:.3g} (tolerance {DELTA_RTOL} relative + "
+        f"{DELTA_ATOL}); against fp64: kernel {worst64:.3g}, eigh {plain64:.3g}; "
+        f"{skipped} skipped (an eigenvalue on the threshold)")
+
+    timing = {}
+    for label, a in (("path 1x6x6", solves[-1][0]), ("batch 4096x6x6", cases["spd6"]),
+                     ("batch 4096x3x3", cases["spd3"])):
+        B = a.numel() // (a.shape[-1] ** 2)
+        n = a.shape[-1]
+        bound_ms, bound_by = bound(B * (2 * n * n + n) * 4.0, 9.0 * n ** 3 * B)
+
+        def kern():
+            return sym_eig.sym_eig(a)
+
+        def plain():
+            return sym_eig.sym_eig_ref(a)
+
+        def library():
+            return torch.linalg.eigh(a)
+
+        rec = {"device_ms": device_ms(kern), "plain_device_ms": device_ms(plain),
+               "library_device_ms": device_ms(library), "call_ms": cuda_ms(kern),
+               "synced_ms": synced_ms(kern), "plain_synced_ms": synced_ms(plain),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        timing[label] = rec
+        log(f"kernel sym_eig timing {label}: device kernel {rec['device_ms']} ms, eigh "
+            f"{rec['plain_device_ms']} ms, library call (eigh again) "
+            f"{rec['library_device_ms']} ms (torch.profiler; None: not measured); with a "
+            f"sync each call: kernel {rec['synced_ms']:.4f} ms, eigh "
+            f"{rec['plain_synced_ms']:.4f} ms (host clock, median of 50); bound "
+            f"{bound_ms:.3g} ms ({bound_by}; operations counted as 9 n^3 flops a matrix, "
+            f"at the f32 rate)")
+    out["timing"] = timing
+    out["max_abs_err"] = max(c["vals_abs"] for c in out["cases"].values())
+    return out
+
+
+def chunk_of(scans: list) -> ScanGrid:
+    """Scans -> one ScanGrid with a leading chunk axis."""
+    return ScanGrid(*(torch.stack(list(f)) for f in zip(*scans)))
+
+
+def cat_results(results) -> tuple:
+    """(positions (N,3), n_corner, n_surf) of a list of stacked ScanResults."""
+    return (torch.cat([r.pose.t.reshape(-1, 3) for r in results]).cpu(),
+            torch.cat([r.stats.n_corner.reshape(-1) for r in results]).cpu(),
+            torch.cat([r.stats.n_surf.reshape(-1) for r in results]).cpu())
+
+
+def the_graph(cfg, C: int) -> pipeline.ChunkGraph:
+    graphs = [g for k, g in pipeline.chunk_graphs.items() if k[0] == cfg and k[1][0] == C]
+    if len(graphs) != 1:
+        raise AssertionError(f"expected one chunk graph for C={C}, found {len(graphs)}")
+    return graphs[0]
+
+
+def phase_chunk(device, main: dict, card: str) -> dict:
+    """process_scan_chunk on the main phase's scans in chunks of CHUNK (see
+    the module docstring, 6b), then one chunk of 2 scans of every other
+    PipelineConfig preset against its sequential run on the card."""
+    cfg = preset_aloam_kitti64()
+    scans = main["scans"]
+    chunks = [chunk_of(scans[k:k + CHUNK]) for k in range(0, N_SCANS, CHUNK)]
+    pipeline.chunk_graphs.clear()
+    start = moving_start(cfg, device)
+    octant_knn.launches = sym_eig.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, first = pipeline.process_scan_chunk(start, chunks[0], cfg)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    graph = the_graph(cfg, CHUNK)
+    per_scan = {"octant_knn": 4, "sym_eig": cfg.solver.n_outer * cfg.solver.n_inner}
+    capture = {"octant_knn": octant_knn.launches, "sym_eig": sym_eig.launches}
+    # the first call runs one scan eagerly before it captures CHUNK scans
+    for k, v in capture.items():
+        if v != per_scan[k] * (CHUNK + 1):
+            raise AssertionError(f"chunk: {k} launched {v} times in the first call, expected "
+                                 f"{per_scan[k]} x ({CHUNK} captured + 1 warm-up scan)")
+    results = [first]
+    for ch in chunks[1:]:
+        state, res = pipeline.process_scan_chunk(state, ch, cfg)
+        results.append(res)
+    torch.cuda.synchronize()
+    replay_calls = {"octant_knn": octant_knn.launches - capture["octant_knn"],
+                    "sym_eig": sym_eig.launches - capture["sym_eig"]}
+    if any(replay_calls.values()):
+        raise AssertionError(f"chunk: the replays called the kernels' wrappers: {replay_calls}")
+    t, nc, ns = cat_results(results)
+    st, snc, sns = cat_results(main["results"])
+    dt = float((t - st).abs().max())
+    bit_equal = bool(torch.equal(t, st))
+    if not (dt <= CHUNK_POSE_TOL and torch.equal(nc, snc) and torch.equal(ns, sns)):
+        raise AssertionError(f"chunk: poses {dt:.3g} m from the sequential run (tolerance "
+                             f"{CHUNK_POSE_TOL}), n_corner {nc.tolist()} / {snc.tolist()}, "
+                             f"n_surf {ns.tolist()} / {sns.tolist()}")
+    log(f"chunk: {N_SCANS} scans as {len(chunks)} chunks of {CHUNK}: poses against the "
+        f"main phase's sequential run max |dt| = {dt:.3g} m (bit for bit: {bit_equal}), "
+        f"correspondence counts equal; first call {first_call_s:.2f} s (warm-up scan and "
+        f"capture {graph.capture_s:.2f} s), graph pool {graph.pool_bytes} bytes; kernels "
+        f"launched in the first call {capture} (1 warm-up scan + {CHUNK} captured), wrapper "
+        f"calls during {len(chunks) - 1} replays {replay_calls}")
+
+    syncs, sites = [], collections.Counter()
+    state = moving_start(cfg, device)
+    for ch in chunks:
+        with counted_syncs(syncs, sites):
+            state, _ = pipeline.process_scan_chunk(state, ch, cfg)
+    if any(syncs):
+        raise AssertionError(f"chunk: host syncs in a replayed chunk call: {syncs}, "
+                             f"{dict(sites)}")
+
+    state = moving_start(cfg, device)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pipeline.process_scan_chunk(state, chunks[0], cfg)
+        torch.cuda.synchronize()
+    events = prof.events()
+    graph_launches = sum(1 for e in events if "GraphLaunch" in e.name)
+    runtime_calls = collections.Counter(e.name for e in events if e.name.startswith("cuda")
+                                        and e.device_type != torch.autograd.DeviceType.CUDA)
+    device_us = sum(e.device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+    if runtime_calls and graph_launches != 1:
+        raise AssertionError(f"chunk: {graph_launches} graph launches in one chunk call "
+                             f"(runtime calls {dict(runtime_calls)})")
+
+    def seq_run():
+        st = moving_start(cfg, device)
+        for s in scans:
+            st, _ = process_scan(st, s, cfg)
+        return st
+
+    def chunk_run():
+        st = moving_start(cfg, device)
+        for ch in chunks:
+            st, _ = pipeline.process_scan_chunk(st, ch, cfg)
+        return st
+
+    rates = {"sequential": [], "chunked": []}
+    for name, fn in (("sequential", seq_run), ("chunked", chunk_run), ("chunked", chunk_run),
+                     ("sequential", seq_run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates[name].append(N_SCANS / (time.perf_counter() - t0))
+    wall_us = N_SCANS / max(rates["chunked"]) / len(chunks) * 1e6  # a chunk, unprofiled
+    busy = device_us / wall_us if device_us else None
+    log(f"chunk: host syncs per replayed chunk {syncs}; one chunk call: "
+        f"{graph_launches} graph launch(es), CUDA runtime calls {dict(runtime_calls)} "
+        f"(torch.profiler); device time {device_us / 1e3:.3f} ms a chunk, busy share during "
+        f"a replay {busy} (device time over the unprofiled chunk's host time); scans/s "
+        f"chunked {rates['chunked']} against sequential {rates['sequential']} (turns "
+        f"seq, chunk, chunk, seq; host clock, one sync a run); on {card}")
+
+    presets_out = {}
+    lego_scans, _, _ = ref_arc(device, 0, 18.0, LEGO_RINGS, fov_up_deg=15.0, fov_down_deg=-15.0)
+    for name, pcfg, pscans in (
+            ("aloam-ref", presets.preset_aloam_kitti64_ref(), scans[:2]),
+            ("lego-ref", presets.preset_lego_vlp16_ref(), lego_scans[:2]),
+            ("liosam-ref", presets.preset_liosam_vlp16_ref(), lego_scans[:2]),
+            ("lego_vlp16", config.preset_lego_vlp16(), lego_scans[:2]),
+            ("sim16", config.preset_sim16(), lego_scans[:2])):
+        st = init_state(pcfg, device)
+        seq = []
+        for s in pscans:
+            st, r = process_scan(st, s, pcfg)
+            seq.append(r)
+        _, res = pipeline.process_scan_chunk(init_state(pcfg, device), chunk_of(pscans), pcfg)
+        _, again = pipeline.process_scan_chunk(init_state(pcfg, device), chunk_of(pscans), pcfg)
+        torch.cuda.synchronize()
+        t, nc, ns = cat_results([res])
+        ta, _, _ = cat_results([again])
+        st_t, snc, sns = cat_results(seq)
+        g = the_graph(pcfg, 2)
+        rec = {"max_dt_m": float((t - st_t).abs().max()), "bit_equal": bool(torch.equal(t, st_t)),
+               "replay_equal": bool(torch.equal(t, ta)),
+               "counts_equal": bool(torch.equal(nc, snc) and torch.equal(ns, sns)),
+               "capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
+        presets_out[name] = rec
+        log(f"chunk {name}: 2 scans {tuple(pscans[0].xyz.shape[:2])} as one captured chunk: "
+            f"{rec}")
+        if not (rec["max_dt_m"] <= POSE_T_TOL and rec["replay_equal"]):
+            raise AssertionError(f"chunk {name}: {rec}")
+    out = {"chunk": CHUNK, "max_dt_m": dt, "bit_equal": bit_equal, "capture_s": graph.capture_s,
+           "first_call_s": first_call_s, "pool_bytes": graph.pool_bytes,
+           "launched_in_first_call": capture, "syncs_per_chunk": syncs,
+           "graph_launches_per_chunk": graph_launches if runtime_calls else None,
+           "device_ms_per_chunk": device_us / 1e3, "busy_share": busy,
+           "scans_per_s": rates, "presets": presets_out}
+    pipeline.chunk_graphs.clear()  # the graphs' pools go back to the allocator
+    return out
 
 
 def lio_sweeps(n_scans: int, device, rings: int = RINGS, fov_up_deg: float = 2.0,
@@ -1250,11 +1638,11 @@ def phase_slam(device, main: dict, card: str) -> dict:
     margin exceeds POSE_T_TOL."""
     scans = main["scans"]
     marks, stage_ms = [], {}
-    octant_knn.launches = 0
+    octant_knn.launches = sym_eig.launches = 0
     torch.cuda.synchronize()
     run = run_slam(device, scans, marks, stage_ms)
     cfg, drv, results, clo = (run[k] for k in ("cfg", "driver", "results", "closure"))
-    launches = octant_knn.launches
+    launches, eig_launches = octant_knn.launches, sym_eig.launches
     first_ms = marks[0].elapsed_time(marks[1])
     steady = (SLAM_CLOSE_AFTER - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(
         marks[SLAM_CLOSE_AFTER])
@@ -1313,6 +1701,7 @@ def phase_slam(device, main: dict, card: str) -> dict:
         raise AssertionError("slam: the driver or its GPS fixes add host syncs to the odometry's")
     return {"results": results, "margins": margins, "closure": clo, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
+            "eig_launches": eig_launches,
             "syncs": syncs, "stage_ms": {k: sum(v) for k, v in stage_ms.items()},
             "n_kf": n_kf, "n_edges": n_edges}
 
@@ -1377,7 +1766,7 @@ def phase_liosam(device, main: dict, card: str) -> dict:
     sweeps, gt = lio_sweeps(N_SCANS + 2 * LIO_PROFILE_SCANS, device)
     drv = liosam_driver(cfg, device)
     per_scan, results = [], []
-    octant_knn.launches = 0
+    octant_knn.launches = sym_eig.launches = 0
     torch.cuda.synchronize()
     marks = [torch.cuda.Event(enable_timing=True)]
     marks[0].record()
@@ -1389,7 +1778,7 @@ def phase_liosam(device, main: dict, card: str) -> dict:
         torch.cuda.synchronize()
         per_scan.append(octant_knn.launches - before)
         results.append(res)
-    launches = octant_knn.launches
+    launches, eig_launches = octant_knn.launches, sym_eig.launches
     first_ms = marks[0].elapsed_time(marks[1])
     steady = (N_SCANS - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-1])
     st = drv.state
@@ -1441,6 +1830,7 @@ def phase_liosam(device, main: dict, card: str) -> dict:
         + f"; on {card}")
     return {"sweeps": sweeps[:N_SCANS], "gt": gt[:N_SCANS], "results": results, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
+            "eig_launches": eig_launches,
             "syncs": syncs, "stage_ms": stage_ms}
 
 
@@ -1509,7 +1899,7 @@ def phase_livox(device, card: str) -> dict:
     gt = livox_gt(N_SCANS)
     drv = livox_driver(device)
     per_scan, results, engaged, calls = [], [], [], []
-    octant_knn.launches = 0
+    octant_knn.launches = sym_eig.launches = 0
     torch.cuda.synchronize()
     marks = [torch.cuda.Event(enable_timing=True)]
     marks[0].record()
@@ -1523,7 +1913,7 @@ def phase_livox(device, card: str) -> dict:
         per_scan.append(octant_knn.launches - before)
         results.append(res)
         engaged.append(drv.engaged)
-    launches = octant_knn.launches
+    launches, eig_launches = octant_knn.launches, sym_eig.launches
     ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(N_SCANS)]
     first_engaged = engaged.index(True) if True in engaged else None
     log(f"livox: {N_SCANS} sweeps {RINGS}x{WIDTH}, LivoxConfig(), init_frames "
@@ -1603,6 +1993,7 @@ def phase_livox(device, card: str) -> dict:
     return {"sweeps": sweeps[:N_SCANS], "gt": gt, "results": results, "engaged": engaged,
             "ate": ate, "scans_per_s": steady, "first_ms": ms[0],
             "engage_ms": ms[first_engaged], "launches": launches, "per_scan": per_scan,
+            "eig_launches": eig_launches,
             "syncs": syncs, "sync_sites": dict(sites), "stage_ms": stage_ms, "calls": calls}
 
 
@@ -1725,8 +2116,8 @@ def drive(step, items, device, calls: list | None = None) -> dict:
     on the card, the first item's ms and items/s over those after the first
     N_WARM and before the last (CUDA events). With `calls`, the octant calls
     of the last item are captured there (outside the timing window), the
-    first on each map."""
-    octant_knn.launches = 0
+    first on each map. The sym_eig launches of the run are counted too."""
+    octant_knn.launches = sym_eig.launches = 0
     per_scan, est_t, est_q = [], [], []
     cuda = is_card(device)
     if cuda:
@@ -1748,8 +2139,8 @@ def drive(step, items, device, calls: list | None = None) -> dict:
     est_t, est_q = np.stack(est_t), np.stack(est_q)
     if not (np.all(np.isfinite(est_t)) and np.all(np.isfinite(est_q))):
         raise AssertionError("non-finite pose")
-    out = {"per_scan": per_scan, "launches": octant_knn.launches, "est_t": est_t,
-           "est_q": est_q}
+    out = {"per_scan": per_scan, "launches": octant_knn.launches,
+           "eig_launches": sym_eig.launches, "est_t": est_t, "est_q": est_q}
     if cuda:
         out["first_ms"] = marks[0].elapsed_time(marks[1])
         out["scans_per_s"] = ((len(items) - 1 - N_WARM) * 1e3
@@ -2869,7 +3260,7 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
 def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
                  liosam_run: dict, livox_run: dict, aloam_run: dict, lego_run: dict,
                  preset_runs: dict, runner_runs: dict, par: dict, par2: dict,
-                 path: dict) -> dict:
+                 path: dict, eig: dict, chunk: dict) -> dict:
     """Every number here was measured in this run; shapes are in the keys.
     ms / plain_ms / library_ms are device times per call (torch.profiler)."""
     t = kern["timing"]
@@ -2925,6 +3316,7 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "aloam_ref_scans_per_s": aloam_run["scans_per_s"], "aloam_ref_ate_m": aloam_run["ate"],
          "aloam_ref_launches_per_scan": aloam_run["per_scan"],
          "lego_ref_scans_per_s": lego_run["scans_per_s"], "lego_ref_ate_m": lego_run["ate"],
+         "chunk": chunk,
          "presets": {k: {f: x for f, x in v.items() if f != "calls"}
                      for k, v in preset_runs.items()},
          "runner": runner_runs},
@@ -2942,6 +3334,26 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "l2_bound_ms": g["map_table"]["l2_bound_ms"], "l2_rate": prb["row_gather_l2_rate"],
          "by_shape": g, "claims_sweep": prb["row_gather_claims_sweep"],
          "two_streams": prb["row_gather_two_streams"], "graph": prb["row_gather_graph"]},
+        {"name": "sym_eig", "route": "cuda", "source": "agi_lidar_slam_torch/csrc/sym_eig.cu",
+         "replaces": "agi_lidar_slam_tpu/estimators/gn_scan2map.py:247",
+         "note": "not a TPU kernel: the port's own, in place of torch.linalg.eigh (the "
+                 "reference's jnp.linalg.eigh at that line and at estimators/two_step.py:39)",
+         "launches": main_run["eig_launches"],
+         "launches_by_path": {"odom": main_run["eig_launches"], "slam": slam_run["eig_launches"],
+                              "liosam": liosam_run["eig_launches"],
+                              "livox": livox_run["eig_launches"],
+                              "aloam-ref": aloam_run["eig_launches"],
+                              "lego-ref": lego_run["eig_launches"],
+                              **{k: v["eig_launches"] for k, v in preset_runs.items()
+                                 if "eig_launches" in v}},
+         "max_abs_err": eig["max_abs_err"],
+         "max_rel_err": max(max(c["vals"], c["rec"], c["orth"]) for c in eig["cases"].values()),
+         "ms": eig["timing"]["path 1x6x6"]["device_ms"],
+         "plain_ms": eig["timing"]["path 1x6x6"]["plain_device_ms"],
+         "bound_ms": eig["timing"]["path 1x6x6"]["bound_ms"],
+         "bound_by": eig["timing"]["path 1x6x6"]["bound_by"],
+         "library_ms": eig["timing"]["path 1x6x6"]["library_device_ms"],
+         "by_shape": eig["timing"], "cases": eig["cases"], "solve_delta": eig["delta"]},
     ]}
 
 
@@ -2988,6 +3400,8 @@ def main() -> int:
     prb = timed("probe", phase_probe, device)
     main_run = timed("main", phase_main, device)
     timed("cpu", phase_cpu, main_run)
+    eig = timed("eig", phase_eig, device, main_run)
+    chunk = timed("chunk", phase_chunk, device, main_run, smi)
     lio_run = timed("lio", phase_lio, device)
     timed("lio-cpu", phase_lio_cpu, lio_run)
     slam_run = timed("slam", phase_slam, device, main_run, smi)
@@ -3016,7 +3430,7 @@ def main() -> int:
 
     print(json.dumps(kernels_line(kern, prb, main_run, lio_run, slam_run, liosam_run, livox_run,
                                   aloam_run, lego_run, preset_runs, runner_runs, par, par2,
-                                  path)),
+                                  path, eig, chunk)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

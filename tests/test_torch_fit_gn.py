@@ -29,6 +29,7 @@ from agi_lidar_slam_tpu.estimators import gn_scan2map as jgn
 from agi_lidar_slam_tpu.fit import geometry_fit as jfit
 from agi_lidar_slam_tpu.geometry import se3 as jse3
 from agi_lidar_slam_tpu.pointcloud.cloud import PointBatch as JBatch
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SOLVER = SolverConfig()
 T_SOLVER = port_cfg(SOLVER)  # the port's own SolverConfig, same fields
@@ -139,20 +140,40 @@ def test_normal_equations():
     assert float(tst[3]) == float(jst[3])
 
 
-@pytest.mark.parametrize("degenerate", [False, True])
+@pytest.mark.parametrize("degenerate", [False, True, "rank_deficient", "just_below",
+                                        "just_above"])
 def test_solve_delta(degenerate):
+    """solve_delta through the eigendecomposition wrapper (estimators/sym_eig:
+    torch.linalg.eigh itself on the CPU) against the reference's: a full-rank
+    H, two eigenvalues below degen_eig_thresh = 100, an H of rank 4 (two
+    eigenvalues at zero), and the smallest eigenvalue 1% below and 1% above
+    the threshold: clamped and kept on both sides alike. (It stays 400 from
+    the next one: an eigenvector's f32 error is about 1e-7 of the largest
+    eigenvalue over the gap, and a gap of a few units would mix a kept and
+    a clamped direction by more than the tolerance in either library.)"""
+    from agi_lidar_slam_torch.estimators.sym_eig import sym_eig
+
     rng = np.random.default_rng(4)
     Q, _ = np.linalg.qr(rng.normal(size=(6, 6)))
     ev = np.array([5e2, 1e3, 2e3, 4e3, 8e3, 1.6e4])
-    if degenerate:
+    if degenerate is True:
         ev[:2] = [3.0, 50.0]  # below degen_eig_thresh=100: clamped
+    elif degenerate == "rank_deficient":
+        ev[:2] = 0.0
+    elif degenerate in ("just_below", "just_above"):
+        ev[0] = 99.0 if degenerate == "just_below" else 101.0
     H = (Q * ev) @ Q.T
     g = rng.normal(size=6) * 50
     H, g = H.astype(np.float32), g.astype(np.float32)
     jd, jdeg = j_solve_delta(jnp.asarray(H), jnp.asarray(g), SOLVER)
     td, tdeg = tgn.solve_delta(_t(H), _t(g), T_SOLVER)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-5)
-    assert bool(tdeg) == bool(jdeg) == degenerate
+    assert bool(tdeg) == bool(jdeg) == (degenerate not in (False, "just_above"))
+    vals, vecs = sym_eig(_t(H))  # on the CPU, the plain version: eigh itself
+    ref_vals, ref_vecs = torch.linalg.eigh(_t(H))
+    assert torch.equal(vals, ref_vals) and torch.equal(vecs, ref_vecs)
+    if degenerate in ("just_below", "just_above"):
+        assert abs(float(vals[0]) - ev[0]) < 0.01
 
 
 def _scene(seed=5, n=4000):

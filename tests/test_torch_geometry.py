@@ -20,6 +20,7 @@ from agi_lidar_slam_torch.geometry import se3 as tse3
 from agi_lidar_slam_torch.geometry import so3 as tso3
 from agi_lidar_slam_tpu.geometry import se3 as jse3
 from agi_lidar_slam_tpu.geometry import so3 as jso3
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-6
 

@@ -34,6 +34,7 @@ from agi_lidar_slam_tpu.graph import keyframes as jkf
 from agi_lidar_slam_tpu.graph import loop_closure as jlc
 from agi_lidar_slam_tpu.graph import pose_graph as jpg
 from agi_lidar_slam_tpu.pointcloud.cloud import PointBatch as JBatch
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 K, NC, NS = 16, 128, 512  # bank capacity, corner and surf slots
 E = 32  # edge capacity

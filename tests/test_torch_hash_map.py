@@ -4,6 +4,8 @@ Keys, slots, occupancy, stored points and drop counts are integer or copied
 data, so every comparison here is exact: the port must make the same hash,
 the same claims and the same first-wins choices as the reference."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from agi_lidar_slam_torch.map.planar import build_ktab
 from agi_lidar_slam_tpu.config import MapConfig
 from agi_lidar_slam_tpu.map import hash_map as jhm
 from agi_lidar_slam_tpu.map.planar import build_planar
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 CFG = MapConfig(sub_voxel=0.5, block_sub=4, log2_slots=10, probes=8, neighborhood="octant8")
 # 2^6 slots for ~200 distinct blocks: chains fill, claims conflict, points drop
@@ -134,3 +137,39 @@ def test_bound_map_and_ktab():
     assert int(tb.num_blocks()) < int(tm.num_blocks())
     # the kernel's packed-key index is the reference planar table's ktab
     _eq(j_ktab(jb, CFG), build_ktab(tb))
+
+
+
+def test_claim_rounds_under_capture_equal_early_exit(monkeypatch):
+    """While a CUDA graph is being captured, lookup_dedup's claims run all
+    `claim_rounds` rounds (no flag can be read back); that gives the
+    early-exit keys and slots bit for bit. The capture check is patched here
+    to force that mode on the CPU. 3000 points in 2^10 slots of 0.5 m blocks
+    make real conflicts: one round leaves blocks unclaimed that a second
+    claims, the early exit stops after 5 of the 8 rounds, and full chains
+    leave some blocks without a slot."""
+    cfg = MapConfig(sub_voxel=0.25, block_sub=2, log2_slots=10, probes=8, neighborhood="full27")
+    tcfg = port_cfg(cfg)
+    rounds = []
+    first_empty = thm._first_empty
+
+    def counted(*a):
+        rounds.append(1)
+        return first_empty(*a)
+
+    monkeypatch.setattr(thm, "_first_empty", counted)
+    pts = np.random.default_rng(7).uniform(-9, 9, (3000, 3)).astype(np.float32)
+    bc, _ = thm.block_coords(torch.from_numpy(pts), tcfg)
+    valid = torch.from_numpy(np.arange(3000) % 10 != 0)
+    keys = thm.empty_map(tcfg, "cpu").keys
+    eager_keys, eager_slot = thm.lookup_dedup(keys, bc, valid, tcfg, claim=True)
+    n_eager = len(rounds)
+    one_keys, _ = thm.lookup_dedup(keys, bc, valid,
+                                   port_cfg(dataclasses.replace(cfg, claim_rounds=1)), claim=True)
+    monkeypatch.setattr(thm, "_capturing", lambda t: True)
+    rounds.clear()
+    all_keys, all_slot = thm.lookup_dedup(keys, bc, valid, tcfg, claim=True)
+    assert len(rounds) == tcfg.claim_rounds and 1 < n_eager < tcfg.claim_rounds
+    assert not torch.equal(one_keys, eager_keys)  # a second round claimed more
+    assert int((eager_slot[valid] < 0).sum()) > 0  # and some chains are full
+    assert torch.equal(all_keys, eager_keys) and torch.equal(all_slot, eager_slot)

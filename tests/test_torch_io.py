@@ -29,6 +29,7 @@ from agi_lidar_slam_tpu.io import bag_stream as jbs
 from agi_lidar_slam_tpu.io import bag_write as jbw
 from agi_lidar_slam_tpu.io import kitti as jkitti
 from agi_lidar_slam_tpu.io import rosbag as jrb
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _sweep(rng, n=400, rings=16):

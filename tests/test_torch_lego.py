@@ -55,6 +55,7 @@ from agi_lidar_slam_tpu.pointcloud.cloud import ScanGrid as JScanGrid
 from agi_lidar_slam_tpu.presets import preset_lego_vlp16_ref
 from agi_lidar_slam_tpu.runtime import pipeline as jpipe
 from agi_lidar_slam_tpu.sim.world import default_world, simulate_scan
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 _BASE = preset_lego_vlp16_ref()
 CFG = dataclasses.replace(

@@ -68,6 +68,7 @@ from agi_lidar_slam_tpu.pointcloud.cloud import PointBatch as JBatch
 from agi_lidar_slam_tpu.runtime import lio_pipeline as jlio
 from agi_lidar_slam_tpu.sim import trajectory as jtraj
 from agi_lidar_slam_tpu.sim import world as jworld
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 # tests/test_lio.py's small LIO configuration and trajectory
 RADIUS, OMEGA = 6.0, 0.25

@@ -62,6 +62,7 @@ from agi_lidar_slam_tpu.map.hash_map import empty_map as jempty_map
 from agi_lidar_slam_tpu.pointcloud.cloud import ScanGrid as JScanGrid
 from agi_lidar_slam_tpu.runtime import livox_pipeline as jlp
 from agi_lidar_slam_tpu.runtime.lio_pipeline import ImuWindow as JImuWindow
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 CFG = jlp.LivoxConfig(
     features=LivoxFeatureConfig(max_corners=256, max_surfs=1024, max_others=512),

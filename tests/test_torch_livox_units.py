@@ -75,6 +75,7 @@ from agi_lidar_slam_tpu.map.hash_map import HashVoxelMap as JMap
 from agi_lidar_slam_tpu.pointcloud.cloud import PointBatch as JBatch
 from agi_lidar_slam_tpu.pointcloud.cloud import ScanGrid as JScanGrid
 from agi_lidar_slam_tpu.runtime import livox_pipeline as jlp
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 RADIUS, OMEGA, DT, M = 8.0, 0.25, 0.1, 20  # bench.py's circle, 200 Hz IMU
 RINGS, WIDTH = 16, 720

@@ -29,6 +29,7 @@ from agi_lidar_slam_tpu.config import MapConfig
 from agi_lidar_slam_tpu.map import hash_map as jhm
 from agi_lidar_slam_tpu.nn import knn as jknn
 from agi_lidar_slam_tpu.nn.vmem_knn import knn_vmem
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 CFG = MapConfig(sub_voxel=0.5, block_sub=4, log2_slots=10, probes=8, neighborhood="octant8")
 CFG27 = MapConfig(sub_voxel=0.8, block_sub=3, log2_slots=10, probes=8, neighborhood="octant8")

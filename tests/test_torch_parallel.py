@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from agi_lidar_slam_torch.parallel.launch import launch
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 N_SCANS = 3
 ODOM_T_TOL = 1e-4

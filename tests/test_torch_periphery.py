@@ -54,6 +54,7 @@ from agi_lidar_slam_tpu.runtime import multisession as jms
 from agi_lidar_slam_tpu.runtime import pipeline as jpipe
 from agi_lidar_slam_tpu.sim import trajectory as jtraj
 from agi_lidar_slam_tpu.sim import world as jworld
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SMALL = MapConfig(sub_voxel=0.4, block_sub=2, log2_slots=8)
 JCFG = dataclasses.replace(preset_sim16(), corner_map=SMALL, surf_map=SMALL)

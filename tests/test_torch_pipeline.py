@@ -7,6 +7,11 @@
   correspondence counts. Measured on the CPU: at most 4.8e-7 m and 8.8e-8
   (f32 reductions in another order; the correspondence counts are equal).
 * One step from a JAX state carried over mid-sequence (convert.py).
+* process_scan_chunk: the 5 scans as one chunk against the reference's
+  poses at the same tolerances (its own tests/test_gn_e2e.py holds its chunk
+  to its sequential run), and as chunks of 2 and 3, the state carried
+  across, against the port's sequential results bit for bit.
+* deskew_constant_velocity against the reference's on one small grid.
 * The port never imports jax or anything of the JAX package.
 """
 
@@ -34,6 +39,7 @@ from agi_lidar_slam_tpu.geometry import se3 as jse3
 from agi_lidar_slam_tpu.geometry import so3 as jso3
 from agi_lidar_slam_tpu.runtime import pipeline as jpipe
 from agi_lidar_slam_tpu.sim.world import default_world, simulate_scan
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 _BASE = preset_aloam_kitti64()
 CFG = dataclasses.replace(
@@ -99,13 +105,82 @@ def _check_step(jres, tres):
 
 
 def test_slice_parity_5_scans():
-    scans, states, results = _reference_run()
-    state = state_from_numpy(states[0], "cpu")
-    for s, jres in zip(scans, results):
-        state, tres = tpipe.process_scan(state, _tscan(s), T_CFG)
+    _, _, results = _reference_run()
+    states, port_results = _port_run()
+    for jres, tres in zip(results, port_results):
         _check_step(jres, tres)
     assert int(results[-1].stats.n_surf) > 100  # the engine tracks: real correspondences
+    assert int(states[-1].frame) == N_SCANS
+
+
+@functools.lru_cache(maxsize=1)
+def _port_run():
+    """The port's sequential run over the reference's scans from its first
+    state: (states, results)."""
+    scans, states, _ = _reference_run()
+    state = state_from_numpy(states[0], "cpu")
+    out_states, out_results = [state], []
+    for s in scans:
+        state, res = tpipe.process_scan(state, _tscan(s), T_CFG)
+        out_states.append(state)
+        out_results.append(res)
+    return out_states, out_results
+
+
+def _chunk(scans):
+    return TScanGrid(*(torch.stack([torch.from_numpy(np.array(a)) for a in f])
+                       for f in zip(*scans)))
+
+
+def _at(tree, i):
+    return jax.tree.map(lambda x: x[i], tree)
+
+
+def test_chunk_matches_reference():
+    """The 5 scans as one chunk: every step's pose within T_TOL / Q_TOL of
+    the reference's sequential run, equal correspondence and drop counts."""
+    scans, states, results = _reference_run()
+    state, res = tpipe.process_scan_chunk(state_from_numpy(states[0], "cpu"), _chunk(scans),
+                                          T_CFG)
+    assert res.pose.t.shape == (N_SCANS, 3) and res.corners.xyz.shape[0] == N_SCANS
+    for i, jres in enumerate(results):
+        _check_step(jres, _at(res, i))
     assert int(state.frame) == N_SCANS
+
+
+def test_chunks_carry_state():
+    """Chunks of 2 and 3 scans, the first chunk's state handed to the
+    second: every field of every result and of the final state equals the
+    port's sequential process_scan run, bit for bit."""
+    scans, states, _ = _reference_run()
+    seq_states, seq_results = _port_run()
+    state, first = tpipe.process_scan_chunk(state_from_numpy(states[0], "cpu"),
+                                            _chunk(scans[:2]), T_CFG)
+    state, second = tpipe.process_scan_chunk(state, _chunk(scans[2:]), T_CFG)
+    got = [_at(first, i) for i in range(2)] + [_at(second, i) for i in range(3)]
+    for a, b in zip(got, seq_results):
+        assert all(torch.equal(x, y) for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+    assert all(torch.equal(x, y) for x, y in zip(jax.tree.leaves(state),
+                                                  jax.tree.leaves(seq_states[-1])))
+
+
+def test_deskew_constant_velocity():
+    """The whole-grid deskew against the reference's (eager JAX) on a 4x64
+    grid with times in [0, 1): 1e-6 m (f32 rotation of points within 20 m)."""
+    rng = np.random.default_rng(3)
+    xyz = rng.uniform(-20, 20, (4, 64, 3)).astype(np.float32)
+    mask = rng.uniform(size=(4, 64)) > 0.2
+    tm = np.broadcast_to(np.linspace(0, 1, 64, endpoint=False, dtype=np.float32), (4, 64))
+    q = np.array([0.995, 0.02, -0.01, 0.098], np.float32)
+    q /= np.linalg.norm(q)
+    t = np.array([0.9, -0.1, 0.05], np.float32)
+    jout = jpipe.deskew_constant_velocity(jpipe.ScanGrid(*map(jnp.asarray, (xyz, mask, tm))),
+                                          jse3.Pose(jnp.asarray(q), jnp.asarray(t)))
+    tout = tpipe.deskew_constant_velocity(_tscan((xyz, mask, tm)),
+                                          tpipe.se3.Pose(torch.from_numpy(q), torch.from_numpy(t)))
+    np.testing.assert_allclose(tout.xyz.numpy(), np.asarray(jout.xyz), rtol=0, atol=1e-6)
+    assert torch.equal(tout.mask, torch.from_numpy(mask))
+    assert float(np.abs(np.asarray(jout.xyz) - xyz).max()) > 0.5  # it moved the points
 
 
 def test_one_step_from_carried_over_state():
@@ -173,9 +248,10 @@ def test_pipeline_hooks_match_plain_call():
 
 def test_port_never_imports_jax():
     """In a fresh interpreter where `jax` and the JAX package cannot be
-    imported, every module of the port (parallel/* included) and
-    chip_smoke.py import, and one CPU scan of each engine (odometry with
-    octant8 maps, so the kernel module too, and the same scan through the
+    imported, every module of the port (parallel/*, estimators/sym_eig and
+    tools/visualize included) and chip_smoke.py import, and one CPU scan of
+    each engine (odometry with octant8 maps, so the kernel module too, the
+    same scan as a chunk of one (process_scan_chunk) and through the
     point-sharded step on a one-rank gloo group, LIO, and the slam and
     LIO-SAM drivers, no closure) runs, two of the
     A-LOAM and LeGO reference presets (the odometry stage, segmentation and
@@ -187,6 +263,7 @@ def test_port_never_imports_jax():
         sys.modules["jax"] = None  # any `import jax...` now raises ImportError
         sys.modules["agi_lidar_slam_tpu"] = None
         import torch
+        torch.set_num_threads(1)  # beside the suite's other workers (tests/_torch_threads.py)
         import agi_lidar_slam_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
@@ -200,9 +277,16 @@ def test_port_never_imports_jax():
         cfg = preset_aloam_kitti64()
         world = default_world(seed=1, device="cpu")
         p = se3.Pose.identity(device="cpu")
-        state, res = process_scan(init_state(cfg, "cpu"),
-                                  simulate_scan(world, p, p, rings=16, width=900), cfg)
+        scan0 = simulate_scan(world, p, p, rings=16, width=900)
+        state, res = process_scan(init_state(cfg, "cpu"), scan0, cfg)
         assert bool(torch.isfinite(res.pose.t).all())
+        from agi_lidar_slam_torch.pointcloud.cloud import ScanGrid
+        from agi_lidar_slam_torch.runtime.pipeline import (deskew_constant_velocity,
+                                                           process_scan_chunk)
+        _, cres = process_scan_chunk(init_state(cfg, "cpu"),
+                                     ScanGrid(*(a[None] for a in scan0)), cfg)
+        assert torch.equal(cres.pose.t[0], res.pose.t)
+        assert deskew_constant_velocity(scan0, res.pose).xyz.shape == scan0.xyz.shape
         import torch.distributed as dist
         from agi_lidar_slam_torch.parallel import distributed as pdist, sharding
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)

@@ -47,6 +47,7 @@ import agi_lidar_slam_tpu.presets as jpre
 from agi_lidar_slam_tpu.eval import metrics as jmet
 from agi_lidar_slam_tpu.pointcloud.cloud import ScanGrid as JScanGrid
 from agi_lidar_slam_tpu.runtime import pipeline as jpipe
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 _BASE = jpre.preset_aloam_kitti64_ref()
 CFG = dataclasses.replace(

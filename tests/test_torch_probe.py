@@ -29,6 +29,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from agi_lidar_slam_torch.tools import probe
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -27,6 +27,7 @@ from agi_lidar_slam_torch.sim.recordings import write_kitti_sequence, write_swee
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose
 from agi_lidar_slam_torch.sim.world import default_world, simulate_scan
 from agi_lidar_slam_torch.tools import run_slam
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 RINGS, WIDTH = 16, 900
 # the reference runner's record and summary keys for these runs (no KITTI
@@ -59,8 +60,10 @@ def test_runner_kitti_gates_and_matches_direct_engine(kitti_seq, tmp_path, capsy
     base = ["--kitti", kitti_seq, "--preset", "sim16", "--width", str(WIDTH), "--device", "cpu",
             "--summary-out", out["summary.json"], "--traj-out", out["traj.txt"],
             "--metrics", out["m.jsonl"], "--save-map", out["maps"]]
-    run = run_slam.run(base + ["--gate", "ate_m=2.0"])
+    png = tmp_path / "run.png"
+    run = run_slam.run(base + ["--gate", "ate_m=2.0", "--viz", str(png)])
     assert run["rc"] == 0 and "GATE PASS" in capsys.readouterr().out
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"  # --viz drew what the run wrote
     est = run["est"]
     summary = json.load(open(out["summary.json"]))
     assert set(summary) == KITTI_SUMMARY_KEYS
@@ -166,12 +169,11 @@ def test_runner_bag_lio_map_and_relocalization(circle_bag, tmp_path):
 
 
 def test_runner_refuses_what_it_cannot_run():
-    """No silent fallback: a cuda run without a card raises, --viz names the
-    later slice, an IMU engine on KITTI is a usage error."""
+    """No silent fallback: a cuda run without a card raises, an IMU engine on
+    KITTI is a usage error (--viz without matplotlib:
+    tests/test_torch_visualize.py)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             run_slam.main(["--sim", "--frames", "1"])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_slam.main(["--sim", "--viz", "x.png", "--device", "cpu"])
     with pytest.raises(SystemExit):
         run_slam.main(["--kitti", "x", "--engine", "lio", "--device", "cpu"])

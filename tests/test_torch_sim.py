@@ -19,6 +19,7 @@ from agi_lidar_slam_torch.sim import world as tworld
 from agi_lidar_slam_tpu.geometry import se3 as jse3
 from agi_lidar_slam_tpu.geometry import so3 as jso3
 from agi_lidar_slam_tpu.sim import world as jworld
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 # the reference jitted: one compile per function and shape, not one per
 # primitive (the suite serializes compiles across workers)

@@ -62,6 +62,7 @@ from agi_lidar_slam_tpu.pointcloud.cloud import ScanGrid as JScanGrid
 from agi_lidar_slam_tpu.runtime import liosam_pipeline as jls
 from agi_lidar_slam_tpu.runtime import slam_pipeline as jslam
 from agi_lidar_slam_tpu.runtime.lio_pipeline import ImuWindow as JImuWindow
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 _BASE = preset_aloam_kitti64()
 PIPE = dataclasses.replace(

@@ -32,6 +32,7 @@ from agi_lidar_slam_tpu.geometry import se3 as jse3
 from agi_lidar_slam_tpu.pointcloud import cloud as jcloud
 from agi_lidar_slam_tpu.pointcloud import voxel as jvox
 from agi_lidar_slam_tpu.sim.world import default_world, simulate_scan
+from tests._torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 FEAT = preset_aloam_kitti64().features
 T_FEAT = port_cfg(FEAT)  # the port's own FeatureConfig, same fields
