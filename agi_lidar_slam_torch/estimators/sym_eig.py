@@ -5,11 +5,15 @@ Gauss-Newton solves' eigh, without a read back to the host.
 matrices, read from their lower triangle, it returns (eigenvalues (..., n)
 ascending, eigenvectors (..., n, n) as columns of an orthonormal matrix). On
 CPU tensors it is torch.linalg.eigh itself, its plain version, so every CPU
-result of the port is unchanged. On CUDA tensors it launches the kernel of
-csrc/sym_eig.cu (cyclic Jacobi in fp64, one thread a matrix; see its source
-note) on the current stream, or raises: there is no fallback. A matrix with
-a NaN or infinite entry gives NaN in all its outputs on the card, as
-jnp.linalg.eigh does in the reference; torch.linalg.eigh raises there.
+result of the port on a finite matrix is unchanged. On CUDA tensors it
+launches the kernel of csrc/sym_eig.cu (cyclic Jacobi in fp64, one thread a
+matrix; see its source note) on the current stream, or raises: there is no
+fallback. A matrix with a NaN or infinite entry in the lower triangle it is
+read from gives NaN in all its outputs on both devices, as jnp.linalg.eigh
+does in the reference (the Gauss-Newton systems are symmetric, so their
+upper triangle holds the same entries): torch.linalg.eigh raises on such a
+matrix, so on the CPU eigh gets the identity in its place and its outputs
+are set to NaN after, with no read back to the host.
 
 It replaces no TPU kernel. torch.linalg.eigh on the card reads its error
 flag back to the host after every call, which stalls the host once per
@@ -34,12 +38,27 @@ def sym_eig_ref(a: torch.Tensor):
     return torch.linalg.eigh(a)
 
 
+def _eigh_nan(a: torch.Tensor):
+    """torch.linalg.eigh with NaN outputs for a matrix that holds a
+    non-finite entry in its lower triangle (the one eigh and the kernel
+    read), where eigh raises: such a matrix goes to eigh as the identity,
+    and its outputs are set to NaN after, with no read back to the host.
+    Any other matrix gets eigh's own numbers, bit for bit."""
+    bad = ~torch.isfinite(torch.tril(a)).all(dim=(-2, -1))
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    vals, vecs = sym_eig_ref(torch.where(bad[..., None, None], eye, a))
+    nan = torch.full((), float("nan"), dtype=a.dtype, device=a.device)
+    return (torch.where(bad[..., None], nan, vals),
+            torch.where(bad[..., None, None], nan, vecs))
+
+
 def sym_eig(a: torch.Tensor):
     """(eigenvalues ascending, eigenvectors as columns) of the symmetric
-    matrices `a` (..., n, n): torch.linalg.eigh on CPU tensors, the kernel on
-    CUDA tensors (float32, 1 <= n <= 8, raising on anything else)."""
+    matrices `a` (..., n, n): torch.linalg.eigh on CPU tensors (NaN for a
+    non-finite lower triangle), the kernel on CUDA tensors (float32, 1 <= n <= 8,
+    raising on anything else)."""
     if a.device.type == "cpu":
-        return sym_eig_ref(a)
+        return _eigh_nan(a)
     if a.device.type != "cuda":
         raise ValueError(f"sym_eig runs on cpu or cuda tensors, not {a.device}")
     if a.dtype != torch.float32:

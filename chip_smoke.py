@@ -195,6 +195,16 @@ Phases, each printing its own lines:
                bound, its live queries, hits, distinct rows and rows read per
                tile, and the L2 figure: the hits' row bytes over the
                row-gather rate phase 4 measured with each row read once.
+ 26. profile — the port's stage profiler (agi_lidar_slam_torch/tools/
+               profile_engines.py, its command line in a process of its own)
+               over every engine (odom, chunk, slam with loop_detect and the
+               driver's automatic closure at a full 1024-keyframe bank, lio,
+               liosam, livox) and its kernels section, 4 warm-up scans and 2
+               timed calls a stage: each staged step gives its engine step's
+               pose within 1e-6 m (odom and chunk bit for bit), every time
+               finite and positive, every share at most 105%, the JAX tool's
+               schema; one line per engine, SOL_smoke.json and .md written
+               under chiprun_out/.
 Then the kernels line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no last line. It needs a CUDA device and the repository
@@ -215,7 +225,7 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -245,8 +255,14 @@ from agi_lidar_slam_torch.runtime import lio_pipeline as lio
 from agi_lidar_slam_torch.runtime.pipeline import init_state, process_scan
 from agi_lidar_slam_torch.sim.trajectory import circle_imu, circle_pose, circle_velocity
 from agi_lidar_slam_torch.sim.world import default_world, simulate_scan
-from agi_lidar_slam_torch.tools import probe, scaling_bench
+from agi_lidar_slam_torch.tools import probe, profile_engines, scaling_bench
 from agi_lidar_slam_torch.tools import run_slam as runner_cli
+# the timing and counting primitives live in the stage profiler; imported
+# here under their names, which knn_bench.py and gather_bench.py use too,
+# with its stage timer (Stages, patched) and its launch count (profiling)
+from agi_lidar_slam_torch.tools.profile_engines import (Stages, bound, counted_syncs, cuda_ms,
+                                                        device_ms, knn_bound, patched,
+                                                        profiling)
 
 SEED = 0
 RINGS, WIDTH = 64, 1800  # KITTI HDL-64 scan scale
@@ -320,76 +336,13 @@ EIG_TOL = 1e-5
 DELTA_RTOL, DELTA_ATOL = 1e-3, 1e-6
 CHUNK = 4  # scans a chunk of the chunk phase
 CHUNK_POSE_TOL = 1e-6  # m: chunked against sequential on one card
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# the stage profiler's run: warm-up scans before the profiled one, timed
+# calls of each stage
+PROFILE_SCANS, PROFILE_REPS = 4, 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int = 25) -> float:
-    """Median milliseconds of fn() over `reps` runs, CUDA events around each."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms(fn, reps: int = 20) -> float | None:
-    """Device time (ms) of one fn() call: every kernel, copy and fill it puts
-    on the card, summed by torch.profiler over `reps` calls. None if three
-    profiles recorded no device activity (then it is not measured).
-
-    cuda_ms times a call from the host's side: for a kernel this short that
-    is mostly the wrapper's host work, so this is the kernel's own time."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profile now and then records no device activity: profile again
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False))
-        if us > 0:
-            return us / 1e3 / reps
-    return None
-
-
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of bytes over the
-    HBM rate and operations over the f32 rate, and which one it is."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def knn_bound(m, queries, qmask, k, cfg, ktab) -> tuple[float, str]:
-    """Bound of one octant-KNN call on these inputs: the queries, mask and
-    outputs, each distinct probe-window entry of the packed-key index and
-    each distinct map row the live queries hit (points + occupancy), read
-    once; 8 flops (3 sub, 3 mul, 2 add) per candidate of a hit row."""
-    qk, qh = octant_knn.octant_probe_keys(queries, cfg)
-    live = qmask[:, None].expand_as(qh)
-    win = qh[..., None].long() + torch.arange(cfg.probes, device=qh.device)
-    n_win = int(torch.unique(win[live]).numel())
-    match = ktab[win] == qk[..., None]
-    rows = win[match & live[..., None]]
-    n_rows = int(torch.unique(rows).numel())
-    B = m.bucket
-    n_bytes = (queries.numel() * 4 + qmask.numel() + n_win * 4 + n_rows * B * (12 + 1)
-               + queries.shape[0] * k * (4 + 12 + 1))
-    return bound(n_bytes, 8.0 * int(rows.numel()) * B)
 
 
 def launch_shape(bucket: int) -> tuple[int, int, int]:
@@ -426,23 +379,6 @@ def sharing(m, queries, qmask, cfg, ktab) -> dict:
             "tiles_staged": int(((per_tile > 0) & (per_tile <= stage_rows)).sum()),
             "tiles_over_stage_rows": int((per_tile > stage_rows).sum()),
             "tile": tile_q, "stage_rows": stage_rows}
-
-
-@contextlib.contextmanager
-def counted_syncs(per_call: list, sites: collections.Counter):
-    """While open, count the host syncs on the card (sync debug mode warns at
-    every synchronizing call): appends the count to `per_call` and adds each
-    call's package-relative file:line to `sites`."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    hits = [w for w in caught if "synchroniz" in str(w.message)]
-    per_call.append(len(hits))
-    sites.update(f"{w.filename.split('agi_lidar_slam_torch/')[-1]}:{w.lineno}" for w in hits)
 
 
 @contextlib.contextmanager
@@ -1365,39 +1301,21 @@ def _finite(state) -> bool:
     return all(bool(torch.isfinite(a).all()) for a in (*state.x, state.P))
 
 
-@contextlib.contextmanager
-def synchronized_stages(times: dict, targets=None):
-    """Time a step's stages on the host clock with the card synchronized
-    around each: the module-level functions `targets` ((module, name) pairs;
-    by default the LIO step's and the IESKF's) are wrapped while the context
-    is open, and each call's ms appended to times[name]. A target may carry
-    a third entry, its label: a string, or a function of the call's
-    arguments that names the stage of each call."""
-    targets = targets or [
-        (lio, "_propagate_window"), (lio, "undistort_to_end"), (lio, "voxel_downsample"),
-        (lio, "update_iterated"), (lio, "insert_with_stats"), (lio, "bound_map"),
-        (ieskf, "knn_cand"), (ieskf, "_h_model"), (ieskf, "_ktab")]
-    saved = [(mod, name, getattr(mod, name), label) for mod, name, label in
-             ((*t, t[1]) if len(t) == 2 else t for t in targets)]
-
-    def timed(label, fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            key = label(*a, **kw) if callable(label) else label
-            times.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
-            return r
-        return wrapper
-
-    for mod, name, fn, label in saved:
-        setattr(mod, name, timed(label, fn))
-    try:
-        yield times
-    finally:
-        for mod, name, fn, _ in saved:
-            setattr(mod, name, fn)
+def timed_stages(step, items, targets) -> tuple[dict, dict]:
+    """The synchronized stage split of step(item) over `items`: the
+    module-level functions `targets` ((module, name) pairs, or (module,
+    name, label) with a label as profile_engines.Stages takes it) timed by
+    the stage profiler's Stages, each call on its own (nested=True: a stage
+    called inside another is timed too), and the whole step as "scan".
+    Returns (ms per item, calls per item) by label."""
+    st = Stages("time", cuda=True, nested=True)
+    run = st.wrap("scan", step)
+    with patched(st, [(*t, t[1]) if len(t) == 2 else t for t in targets]):
+        for it in items:
+            run(it)
+    st.end_step()
+    return ({k: sum(v) / len(items) for k, v in st.values.items()},
+            {k: st.calls[k] / len(items) for k in st.values})
 
 
 def phase_lio(device) -> dict:
@@ -1458,32 +1376,25 @@ def phase_lio(device) -> dict:
         with counted_syncs(syncs, sync_sites):
             state, _ = lio.process_lio_scan(state, pts, tt, m, win, cfg)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling() as rec:
+        t0 = time.perf_counter()
         for _ in range(LIO_PROFILE_SCANS):
             pts, tt, m, win = next(rest)
             state, _ = lio.process_lio_scan(state, pts, tt, m, win, cfg)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    kernel_us = sum(e.device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
-    n_launch = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                                   "cuLaunchKernel", "cuLaunchKernelEx"))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_us, n_launch = rec["device_ms"] * 1e3, rec["launches"]
     busy = kernel_us / 1e3 / wall_ms if kernel_us > 0 else None
-    times: dict = {}
-    with synchronized_stages(times):
-        for _ in range(LIO_PROFILE_SCANS):
-            pts, tt, m, win = next(rest)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = lio.process_lio_scan(state, pts, tt, m, win, cfg)
-            torch.cuda.synchronize()
-            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
-    stage_ms = {k: sum(v) / LIO_PROFILE_SCANS for k, v in times.items()}
-    calls = {k: len(v) / LIO_PROFILE_SCANS for k, v in times.items()}
+    box = [state]
+
+    def step(item):
+        box[0], _ = lio.process_lio_scan(box[0], *item, cfg)
+
+    stage_ms, calls = timed_stages(step, [next(rest) for _ in range(LIO_PROFILE_SCANS)], [
+        (lio, "_propagate_window"), (lio, "undistort_to_end"), (lio, "voxel_downsample"),
+        (lio, "update_iterated"), (lio, "insert_with_stats"), (lio, "bound_map"),
+        (ieskf, "knn_cand"), (ieskf, "_h_model"), (ieskf, "_ktab")])
+    state = box[0]
     if not _finite(state):
         raise AssertionError("non-finite LIO state in the measured scans")
     log(f"lio: host syncs per scan {syncs} (sync debug mode); by call site over "
@@ -1559,14 +1470,14 @@ def gate_margins(gates: list, results: list, cfg) -> list:
     return out
 
 
-def run_slam(device, scans: list, marks: list | None = None, stage_ms: dict | None = None,
+def run_slam(device, scans: list, marks: list | None = None, stages: Stages | None = None,
              syncs: list | None = None, sites: collections.Counter | None = None,
              gps: dict | None = None) -> dict:
     """SlamDriver over `scans` on `device`, started moving, with
     close_loop_external(n - 1, 0) after the first SLAM_CLOSE_AFTER scans.
     With `marks`, a CUDA event is recorded there before the first scan, after
     each scan and after the closure, each followed by a synchronize; with
-    `stage_ms`, the closure's stages are timed there (synchronized); with
+    `stages`, the closure's stages are timed there (synchronized); with
     `syncs`, each scan's host syncs are counted there (and in `sites`); with
     `gps`, {scan index: numpy position} fixes go in with those scans.
     Returns the results, the gate's inputs before every scan and after the
@@ -1595,12 +1506,12 @@ def run_slam(device, scans: list, marks: list | None = None, stage_ms: dict | No
         if i == SLAM_CLOSE_AFTER:
             n = int(drv.state.bank.count)
             before = octant_knn.launches
-            targets = [(slam_pipeline, "align_loop"), (slam_pipeline, "_correct_and_rebuild"),
-                       (slam_pipeline, "solve_pose_graph"), (slam_pipeline, "_chunked_insert")]
+            targets = [(slam_pipeline, n, n) for n in ("align_loop", "_correct_and_rebuild",
+                                                        "solve_pose_graph", "_chunked_insert")]
             t0 = time.perf_counter()
             slam_pipeline.align_loop = align_kept
             try:
-                with (synchronized_stages(stage_ms, targets) if stage_ms is not None
+                with (patched(stages, targets) if stages is not None
                       else contextlib.nullcontext()):
                     closure["accepted"] = drv.close_loop_external(n - 1, 0)
             finally:
@@ -1637,10 +1548,11 @@ def phase_slam(device, main: dict, card: str) -> dict:
     slam-cpu holds the card's keyframe decisions to the CPU's only where the
     margin exceeds POSE_T_TOL."""
     scans = main["scans"]
-    marks, stage_ms = [], {}
+    marks, stages = [], Stages("time", cuda=True, nested=True)
     octant_knn.launches = sym_eig.launches = 0
     torch.cuda.synchronize()
-    run = run_slam(device, scans, marks, stage_ms)
+    run = run_slam(device, scans, marks, stages)
+    stages.end_step()
     cfg, drv, results, clo = (run[k] for k in ("cfg", "driver", "results", "closure"))
     launches, eig_launches = octant_knn.launches, sym_eig.launches
     first_ms = marks[0].elapsed_time(marks[1])
@@ -1664,7 +1576,8 @@ def phase_slam(device, main: dict, card: str) -> dict:
     log(f"slam: {n_kf} keyframes, {n_edges} edges ({drv.n_loops_closed} loop closed); "
         f"closure accepted, fitness {float(clo['fitness']):.4f}, {clo['ms']:.1f} ms in all; "
         "synchronized stages ms (calls): " + ", ".join(
-            f"{k} {sum(v):.2f} ({len(v)})" for k, v in stage_ms.items()) + f"; on {card}")
+            f"{k} {sum(v):.2f} ({stages.calls[k]})" for k, v in stages.values.items())
+        + f"; on {card}")
     n_surf = [int(r.stats.n_surf) for r in results]
     rms = [float(r.stats.rms) for r in results]
     est = np.stack([r.pose.t.cpu().numpy() for r in results])
@@ -1702,7 +1615,7 @@ def phase_slam(device, main: dict, card: str) -> dict:
     return {"results": results, "margins": margins, "closure": clo, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
             "eig_launches": eig_launches,
-            "syncs": syncs, "stage_ms": {k: sum(v) for k, v in stage_ms.items()},
+            "syncs": syncs, "stage_ms": {k: sum(v) for k, v in stages.values.items()},
             "n_kf": n_kf, "n_edges": n_edges}
 
 
@@ -1812,21 +1725,13 @@ def phase_liosam(device, main: dict, card: str) -> dict:
     extra = [site for site in sites if site.rsplit(":", 1)[0] not in odom_files]
     if extra:
         raise AssertionError(f"liosam: host syncs outside the solve and the insert: {extra}")
-    times: dict = {}
-    stages = [(liosam_pipeline, n) for n in (
-        "preintegrate", "deskew_with_imu", "extract_features", "voxel_downsample",
-        "solve_scan2map", "_fuse", "insert_with_stats", "bound_map", "_keyframe_step_body",
-        "detect_loop")]
-    with synchronized_stages(times, stages):
-        for s, win in rest:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            drv.process(s, win)
-            torch.cuda.synchronize()
-            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
-    stage_ms = {k: sum(v) / LIO_PROFILE_SCANS for k, v in times.items()}
+    stage_ms, calls = timed_stages(lambda item: drv.process(*item), list(rest), [
+        (liosam_pipeline, n) for n in (
+            "preintegrate", "deskew_with_imu", "extract_features", "voxel_downsample",
+            "solve_scan2map", "_fuse", "insert_with_stats", "bound_map", "_keyframe_step_body",
+            "detect_loop")])
     log("liosam: synchronized stage times, ms per scan (calls per scan): " + ", ".join(
-        f"{k} {v:.2f} ({len(times[k]) / LIO_PROFILE_SCANS:g})" for k, v in stage_ms.items())
+        f"{k} {v:.2f} ({calls[k]:g})" for k, v in stage_ms.items())
         + f"; on {card}")
     return {"sweeps": sweeps[:N_SCANS], "gt": gt[:N_SCANS], "results": results, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
@@ -1972,21 +1877,13 @@ def phase_livox(device, card: str) -> dict:
             raise AssertionError(f"livox: host syncs of sweep {i} outside the listed sites: "
                                  f"{extra}")
 
-    times: dict = {}
-    stages = [(livox_pipeline, n) for n in (
-        "remove_dynamic", "extract_livox_features", "voxel_downsample", "preintegrate",
-        "solve_window", "marginalize_oldest", "insert_with_stats", "bound_map")] + [
-        (window_map, n) for n in ("associate_window", "_window_normal_eq", "_imu_jacobian")]
-    with synchronized_stages(times, stages):
-        for s, win in sweeps[N_SCANS:]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            drv.process(s, win)
-            torch.cuda.synchronize()
-            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
-    stage_ms = {k: sum(v) / LIVOX_STAGE_SCANS for k, v in times.items()}
+    stage_ms, stage_calls = timed_stages(lambda item: drv.process(*item), sweeps[N_SCANS:], [
+        (livox_pipeline, n) for n in (
+            "remove_dynamic", "extract_livox_features", "voxel_downsample", "preintegrate",
+            "solve_window", "marginalize_oldest", "insert_with_stats", "bound_map")] + [
+        (window_map, n) for n in ("associate_window", "_window_normal_eq", "_imu_jacobian")])
     log("livox: synchronized stage times, ms per engaged sweep (calls per sweep): " + ", ".join(
-        f"{k} {v:.2f} ({len(times[k]) / LIVOX_STAGE_SCANS:g})" for k, v in stage_ms.items())
+        f"{k} {v:.2f} ({stage_calls[k]:g})" for k, v in stage_ms.items())
         + f"; on {card}")
     if not _livox_finite(drv.state):
         raise AssertionError("livox: non-finite window state in the measured sweeps")
@@ -2188,21 +2085,16 @@ def feature_syncs_and_stages(cfg, scans, device, targets, label: str, card: str)
             state, _ = process_scan(state, s, cfg)
     log(f"{label}: host syncs per scan {syncs} (sync debug mode); by call site: "
         f"{dict(sites.most_common())}")
-    state = init_state(cfg, device)
+    box = [init_state(cfg, device)]
     for s in scans[:N_WARM]:
-        state, _ = process_scan(state, s, cfg)
-    times: dict = {}
-    with synchronized_stages(times, targets):
-        for s in scans[N_WARM:N_WARM + REF_STAGE_SCANS]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = process_scan(state, s, cfg)
-            torch.cuda.synchronize()
-            times.setdefault("scan", []).append((time.perf_counter() - t0) * 1e3)
-    stage_ms = {k: sum(v) / REF_STAGE_SCANS for k, v in times.items()}
+        box[0], _ = process_scan(box[0], s, cfg)
+
+    def step(s):
+        box[0], _ = process_scan(box[0], s, cfg)
+
+    stage_ms, calls = timed_stages(step, scans[N_WARM:N_WARM + REF_STAGE_SCANS], targets)
     log(f"{label}: synchronized stage times, ms per scan (calls per scan): " + ", ".join(
-        f"{k} {v:.2f} ({len(times[k]) / REF_STAGE_SCANS:g})" for k, v in stage_ms.items())
-        + f"; on {card}")
+        f"{k} {v:.2f} ({calls[k]:g})" for k, v in stage_ms.items()) + f"; on {card}")
     return {"syncs": syncs, "sync_sites": dict(sites), "stage_ms": stage_ms}
 
 
@@ -3257,6 +3149,77 @@ def phase_path(runs: dict, gather_gb_per_s: float) -> dict:
     return out
 
 
+def _times(payload: dict):
+    """Every (label, ms) of a profiler payload: each stage's median and
+    spread, the closure's, and each kernel row's device ms."""
+    for eng, st in payload["stages"].items():
+        for name, v in st.items():
+            yield f"{eng} {name}", v["ms"]
+            yield f"{eng} {name} spread", min(v["spread_ms"])
+    clo = payload["engine_summary"]["slam"]["closure"]["stages"]
+    for name, v in clo.items():
+        yield f"slam closure {name}", v["ms"]
+    for r in payload["kernel_rooflines"]:
+        yield f"{r['kernel']} {r['shape']}", r["ms"]
+
+
+def phase_profile(card: str) -> dict:
+    """The port's stage profiler as a user runs it, `python -m
+    agi_lidar_slam_torch.tools.profile_engines --engine all` (in a process of
+    its own: late in this one torch.profiler records only part of the
+    device's work), with PROFILE_REPS timed calls after PROFILE_SCANS
+    warm-up scans, writing chiprun_out/SOL_smoke.json and .md. Each
+    engine's staged step must give the engine step's pose within
+    CHUNK_POSE_TOL (odom and chunk bit for bit), every time must be finite
+    and positive, every share at most profile_engines.SHARE_LIMIT (the
+    profiler raises above it) and the payload must hold the JAX tool's
+    schema. One line per engine."""
+    out = Path("chiprun_out")
+    run = subprocess.run([sys.executable, "-m", "agi_lidar_slam_torch.tools.profile_engines",
+                          "--engine", "all", "--scans", str(PROFILE_SCANS), "--reps",
+                          str(PROFILE_REPS), "--out", str(out), "smoke"],
+                         capture_output=True, text=True, timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f"profile: the profiler exited {run.returncode}:\n"
+                             f"{run.stderr[-4000:]}")
+    payload = json.loads((out / "SOL_smoke.json").read_text())
+    keys = {"engines_ms_per_scan", "kernel_rooflines", "engine_summary", "hw", "scan_scale",
+            "timing"}
+    if not keys <= set(payload) or set(payload["stages"]) != set(profile_engines.ENGINES):
+        raise AssertionError(f"profile: payload keys {sorted(payload)}, engines "
+                             f"{sorted(payload['stages'])}")
+    bad = [(k, v) for k, v in _times(payload) if not (v is not None and np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"profile: times not finite and positive: {bad}")
+    for eng, s in payload["engine_summary"].items():
+        exact = eng in ("odom", "chunk")
+        if (s["composition_gap"] > CHUNK_POSE_TOL or (exact and not s["composition_equal"])
+                or s["busy_share"] is None):
+            raise AssertionError(f"profile {eng}: staged step against the engine step: gap "
+                                 f"{s['composition_gap']}, bit-equal {s['composition_equal']} "
+                                 f"(must be{' bit-equal' if exact else ''} within "
+                                 f"{CHUNK_POSE_TOL}); busy share {s['busy_share']}")
+        st = payload["stages"][eng]
+        log(f"profile {eng}: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms ({v['launches']} launches, {v['syncs']} syncs)"
+            for k, v in st.items()) + f"; stages sum {s['stages_sum_ms']} ms, busy share "
+            f"{s['busy_share']:.3f}, of the 10 Hz budget {s['budget_10hz']:.3f}, kernel bounds "
+            f"{s.get('bounds_ms')} ms, staged gap {s['composition_gap']}, the busy share's "
+            f"profile complete: {s['profile_complete']}; on {card}")
+    clo = payload["engine_summary"]["slam"]["closure"]
+    log(f"profile slam closure at a full bank ({clo['live']} of {clo['keyframes']} keyframes, "
+        f"loop {clo['loop']}, built in {clo['bank_build_s']:.1f} s): " + ", ".join(f"{k} {v['ms']:.2f} ms ({v['launches']} launches, "
+                                              f"{v['syncs']} syncs)"
+                                              for k, v in clo["stages"].items()))
+    log("profile kernels: " + "; ".join(
+        f"{r['kernel']} {r['shape']} {r['ms']:.5f} ms, bound {r['bound_ms']:.5f} "
+        f"({r['bound_by']}), share {r['share']:.3f}" for r in payload["kernel_rooflines"]))
+    log(f"profile: {run.stdout.strip()}; seconds by section: " + ", ".join(
+        line.split(": ", 1)[1] for line in run.stderr.splitlines()
+        if line.startswith("profile_engines: ")))
+    return payload
+
+
 def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run: dict,
                  liosam_run: dict, livox_run: dict, aloam_run: dict, lego_run: dict,
                  preset_runs: dict, runner_runs: dict, par: dict, par2: dict,
@@ -3425,6 +3388,7 @@ def main() -> int:
                                       "aloam-ref": aloam_run["calls"],
                                       "horizon-ref": preset_runs["horizon-ref"]["calls"]},
                  prb["row_gather_sum"]["distinct"]["GB_per_s"])
+    timed("profile", phase_profile, smi)
     log("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
 

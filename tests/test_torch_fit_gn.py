@@ -141,7 +141,7 @@ def test_normal_equations():
 
 
 @pytest.mark.parametrize("degenerate", [False, True, "rank_deficient", "just_below",
-                                        "just_above"])
+                                        "just_above", "nonfinite"])
 def test_solve_delta(degenerate):
     """solve_delta through the eigendecomposition wrapper (estimators/sym_eig:
     torch.linalg.eigh itself on the CPU) against the reference's: a full-rank
@@ -153,6 +153,19 @@ def test_solve_delta(degenerate):
     a clamped direction by more than the tolerance in either library.)"""
     from agi_lidar_slam_torch.estimators.sym_eig import sym_eig
 
+    if degenerate == "nonfinite":
+        # a NaN entry: jnp.linalg.eigh gives NaN, so the reference's step is
+        # all NaN and flagged degenerate; the port's must be too (CPU eigh
+        # itself raises on such a matrix)
+        b = np.random.default_rng(0).normal(size=(6, 6))
+        H = (b @ b.T * 100).astype(np.float32)
+        H[2, 3] = H[3, 2] = np.nan
+        g = np.ones(6, np.float32)
+        jd, jdeg = j_solve_delta(jnp.asarray(H), jnp.asarray(g), SOLVER)
+        td, tdeg = tgn.solve_delta(_t(H), _t(g), T_SOLVER)
+        assert np.all(np.isnan(np.asarray(jd))) and np.all(np.isnan(td.numpy()))
+        assert bool(jdeg) and bool(tdeg)
+        return
     rng = np.random.default_rng(4)
     Q, _ = np.linalg.qr(rng.normal(size=(6, 6)))
     ev = np.array([5e2, 1e3, 2e3, 4e3, 8e3, 1.6e4])
@@ -174,6 +187,36 @@ def test_solve_delta(degenerate):
     assert torch.equal(vals, ref_vals) and torch.equal(vecs, ref_vecs)
     if degenerate in ("just_below", "just_above"):
         assert abs(float(vals[0]) - ev[0]) < 0.01
+
+
+def test_sym_eig_cpu_is_eigh_and_nan_stays_in_its_matrix():
+    """On the CPU, sym_eig of finite matrices is torch.linalg.eigh bit for
+    bit, also in a batch that holds a non-finite matrix: only that matrix's
+    outputs are NaN. Like the card's kernel it reads the lower triangle
+    only: a NaN above the diagonal leaves eigh's numbers. The two-step
+    solver's 3-dof solve gives a NaN step flagged degenerate on a
+    non-finite system, as solve_delta does."""
+    from agi_lidar_slam_torch.estimators.sym_eig import sym_eig
+    from agi_lidar_slam_torch.estimators.two_step import _CORNER_IDX, _solve_subset
+
+    rng = np.random.default_rng(6)
+    J = rng.normal(size=(5, 18, 6)) * rng.uniform(1, 300, (5, 1, 1))
+    a = _t((J.transpose(0, 2, 1) @ J).astype(np.float32))
+    ref_vals, ref_vecs = torch.linalg.eigh(a)
+    vals, vecs = sym_eig(a)
+    assert torch.equal(vals, ref_vals) and torch.equal(vecs, ref_vecs)
+    bad = a.clone()
+    bad[2, 3, 2] = float("inf")
+    vals, vecs = sym_eig(bad)
+    keep = [0, 1, 3, 4]
+    assert torch.equal(vals[keep], ref_vals[keep]) and torch.equal(vecs[keep], ref_vecs[keep])
+    assert bool(torch.isnan(vals[2]).all()) and bool(torch.isnan(vecs[2]).all())
+    upper = a.clone()
+    upper[1, 0, 5] = float("nan")
+    vals, vecs = sym_eig(upper)
+    assert torch.equal(vals, ref_vals) and torch.equal(vecs, ref_vecs)
+    d, degen = _solve_subset(bad[2], torch.ones(6), _CORNER_IDX, 10.0)
+    assert bool(torch.isnan(d[list(_CORNER_IDX)]).all()) and bool(degen)
 
 
 def _scene(seed=5, n=4000):
