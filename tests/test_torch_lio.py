@@ -243,11 +243,21 @@ def _reference_scans():
 
 
 @pytest.fixture(scope="module")
-def ref():
-    """Reference outputs as numpy: the units, and the states and results of
-    the 3-scan sequence."""
-    d = _inputs()
-    units = _np(_reference_units(d))
+def inputs():
+    return _inputs()
+
+
+# one reference run a fixture: a test builds only the ones it compares against
+@pytest.fixture(scope="module")
+def ref(inputs):
+    """The inputs, and the reference's unit outputs as numpy."""
+    return dict(d=inputs, units=_np(_reference_units(inputs)))
+
+
+@pytest.fixture(scope="module")
+def seq(inputs):
+    """The inputs, and the reference's states and results of the 3-scan
+    sequence as numpy."""
     scans, wins, gts, state = _reference_scans()
     flat = [(s.xyz.reshape(-1, 3), (s.time * SCAN_DT).reshape(-1), s.mask.reshape(-1))
             for s in scans]
@@ -258,9 +268,9 @@ def ref():
         results.append(_np(res))
     # scan 1 again from a covariance that is not positive-definite (the
     # compiled step: the same shapes and weak types)
-    nonpd = jax.tree.map(jnp.asarray, states[1]._replace(P=-d["P_upd"]))
+    nonpd = jax.tree.map(jnp.asarray, states[1]._replace(P=-inputs["P_upd"]))
     fallback = _np(jlio.process_lio_scan(nonpd, *flat[1], wins[1], CFG))
-    return dict(d=d, units=units, flat=_np(flat), wins=_np(wins), gts=_np(gts),
+    return dict(d=inputs, flat=_np(flat), wins=_np(wins), gts=_np(gts),
                 states=states, results=results, fallback=fallback)
 
 
@@ -467,16 +477,16 @@ def test_update_iterated_non_pd_covariance(ref, monkeypatch):
     _close(rms, jrms, 1e-6, rtol=1e-4)
 
 
-def test_lio_step_divergence_fallback(ref):
+def test_lio_step_divergence_fallback(seq):
     """One LIO step from the state after scan 0 with a negative-definite
     covariance (it stays so through the propagation): on both sides the
     update is NaN and the divergence fallback takes over (the propagated
     pose, zero velocity and biases, P = 0.1 I), and the map grows at the
     fallback pose."""
-    jstate = ref["states"][1]._replace(P=-ref["d"]["P_upd"])
-    jnew, jres = ref["fallback"]
+    jstate = seq["states"][1]._replace(P=-seq["d"]["P_upd"])
+    jnew, jres = seq["fallback"]
     new, res = tlio.process_lio_scan(convert.lio_state_from_numpy(jstate, "cpu"),
-                                     *_tflat(ref, 1), _twin(ref, 1), T_CFG)
+                                     *_tflat(seq, 1), _twin(seq, 1), T_CFG)
     for x, P in ((jnew.x, jnew.P), (new.x, new.P.numpy())):
         assert not np.asarray(x.v).any() and not np.asarray(x.bg).any()
         assert not np.asarray(x.ba).any()
@@ -495,35 +505,35 @@ def _twin(ref, i):
     return tlio.ImuWindow(*(_t(np.asarray(a)) for a in ref["wins"][i]))
 
 
-def test_lio_slice_3_scans(ref):
-    state = convert.lio_state_from_numpy(ref["states"][0], "cpu")
-    for i, jres in enumerate(ref["results"]):
-        state, res = tlio.process_lio_scan(state, *_tflat(ref, i), _twin(ref, i), T_CFG)
+def test_lio_slice_3_scans(seq):
+    state = convert.lio_state_from_numpy(seq["states"][0], "cpu")
+    for i, jres in enumerate(seq["results"]):
+        state, res = tlio.process_lio_scan(state, *_tflat(seq, i), _twin(seq, i), T_CFG)
         _close(res.x.p, jres.x.p, 1e-4)
         _close(res.x.q, jres.x.q, 1e-4)
         jn = int(jres.n_matches)
         assert abs(int(res.n_matches) - jn) <= 0.005 * jn, (int(res.n_matches), jn)
         assert int(res.n_dropped) == int(jres.n_dropped)
-    assert int(ref["results"][-1].n_matches) > 1000  # the engine tracks: real matches
-    np.testing.assert_allclose(state.x.p.numpy(), ref["gts"][-1].t, atol=0.1)
+    assert int(seq["results"][-1].n_matches) > 1000  # the engine tracks: real matches
+    np.testing.assert_allclose(state.x.p.numpy(), seq["gts"][-1].t, atol=0.1)
     assert int(state.frame) == N_SCANS
 
 
-def test_lio_step_from_carried_over_state(ref):
+def test_lio_step_from_carried_over_state(seq):
     """One step from the reference's state after scan 1 (NavState, P, map
     carried over); the input state is left as it was."""
-    carried = convert.lio_state_from_numpy(ref["states"][1], "cpu")
+    carried = convert.lio_state_from_numpy(seq["states"][1], "cpu")
     back = convert.state_to_numpy(carried)
-    np.testing.assert_array_equal(back["map"]["keys"], ref["states"][1].map.keys)
+    np.testing.assert_array_equal(back["map"]["keys"], seq["states"][1].map.keys)
     kept = [t.clone() for t in carried.map]
-    state, res = tlio.process_lio_scan(carried, *_tflat(ref, 1), _twin(ref, 1), T_CFG)
-    jres = ref["results"][1]
+    state, res = tlio.process_lio_scan(carried, *_tflat(seq, 1), _twin(seq, 1), T_CFG)
+    jres = seq["results"][1]
     _close(res.x.p, jres.x.p, 1e-4)
-    _close(state.P, ref["states"][2].P, 1e-4 * np.abs(ref["states"][2].P).max(), rtol=1e-3)
+    _close(state.P, seq["states"][2].P, 1e-4 * np.abs(seq["states"][2].P).max(), rtol=1e-3)
     assert all(torch.equal(a, b) for a, b in zip(kept, carried.map))
 
 
-def test_sharded_lio_step_on_two_ranks(ref, tmp_path):
+def test_sharded_lio_step_on_two_ranks(seq, tmp_path):
     """parallel/sharding.sharded_lio_step on two gloo ranks, each with its
     block of every scan's points, through the 3-scan sequence from the
     reference's first state: both ranks alike, poses within 5e-3 m of the
@@ -532,14 +542,14 @@ def test_sharded_lio_step_on_two_ranks(ref, tmp_path):
     tests/test_sharding_parity.py:163-165)."""
     from tests.test_torch_parallel import check_engine_ranks, engine_rank, launch_two
 
-    items = [(*_tflat(ref, i), _twin(ref, i)) for i in range(N_SCANS)]
-    state = convert.lio_state_from_numpy(ref["states"][0], "cpu")
+    items = [(*_tflat(seq, i), _twin(seq, i)) for i in range(N_SCANS)]
+    state = convert.lio_state_from_numpy(seq["states"][0], "cpu")
     ranks = launch_two(engine_rank, ("lio", T_CFG, [(state, items)]), tmp_path)
-    check_engine_ranks(ranks, [r.x.p for r in ref["results"]],
-                       [s.map.occ for s in ref["states"][1:]])
+    check_engine_ranks(ranks, [r.x.p for r in seq["results"]],
+                       [s.map.occ for s in seq["states"][1:]])
 
 
-def test_config_and_update_hook(ref):
+def test_config_and_update_hook(seq):
     """The config conversion, and the multi-device hooks of the LIO step:
     _process_lio_body with an update_fn that wraps update_iterated, and
     update_iterated with group=None, each give the plain call's result bit
@@ -559,9 +569,9 @@ def test_config_and_update_hook(ref):
         calls.append(len(a))
         return tieskf.update_iterated(*a, group=None, **kw)
 
-    carried = convert.lio_state_from_numpy(ref["states"][1], "cpu")
-    plain = tlio.process_lio_scan(carried, *_tflat(ref, 1), _twin(ref, 1), T_CFG)
-    hooked = tlio._process_lio_body(carried, *_tflat(ref, 1), _twin(ref, 1), T_CFG,
+    carried = convert.lio_state_from_numpy(seq["states"][1], "cpu")
+    plain = tlio.process_lio_scan(carried, *_tflat(seq, 1), _twin(seq, 1), T_CFG)
+    hooked = tlio._process_lio_body(carried, *_tflat(seq, 1), _twin(seq, 1), T_CFG,
                                     update_fn=update_fn)
     leaves = [(a, b) for x, y in zip(plain, hooked) for a, b in zip(_leaves(x), _leaves(y))]
     assert calls == [6] and len(leaves) > 8 and all(torch.equal(a, b) for a, b in leaves)

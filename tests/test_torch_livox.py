@@ -147,10 +147,21 @@ def _reference_mode1(items, x0):
 
 
 @pytest.fixture(scope="module")
-def ref():
-    items, x0 = _inputs()
-    return dict(items=items, x0=x0, mode2=_reference_mode2(items, x0),
-                mode1=_reference_mode1(items, x0))
+def inputs():
+    return _inputs()
+
+
+# one reference run a fixture: a test builds only the ones it compares against
+@pytest.fixture(scope="module")
+def ref(inputs):
+    """The inputs, and the reference's IMU_Mode 2 run."""
+    items, x0 = inputs
+    return dict(items=items, x0=x0, mode2=_reference_mode2(items, x0))
+
+
+@pytest.fixture(scope="module")
+def mode1(inputs):
+    return _reference_mode1(*inputs)
 
 
 def _tin(item):
@@ -234,11 +245,11 @@ def test_sharded_livox_step_on_two_ranks(ref, tmp_path):
 
 
 @pytest.mark.parametrize("mode", [0, 1])
-def test_livox_driver_lidar_only(ref, mode):
+def test_livox_driver_lidar_only(ref, request, mode):
     """IMU_Mode 0 (LiDAR-only) and 1 (gyro deskew, then LiDAR-only): never
     engages; poses as the reference's."""
     want = ([res.pose for res in ref["mode2"]["results"][:N_LO]] if mode == 0
-            else ref["mode1"])
+            else request.getfixturevalue("mode1"))
     drv = _driver(ref, dataclasses.replace(T_CFG, imu_mode=mode))
     for item, jp in zip(ref["items"], want):
         res = drv.process(*_tin(item))

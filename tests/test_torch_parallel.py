@@ -235,9 +235,9 @@ def rank_run(cases, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(rank_run, ref, mesh2_ref):
-    """Both ranks' results, once the references exist (they compile while
-    the ranks run)."""
+def ranks(rank_run):
+    """Both ranks' results. A test that compares them against a reference asks
+    for the reference first, so that it compiles while the ranks run."""
     return rank_run.result()
 
 
@@ -344,13 +344,13 @@ def test_collectives_per_scan(ranks, cases):
     assert np.all(r["mp_coll"] == 2 * solver.n_outer), r["mp_coll"]
 
 
-def test_dp_odometry_matches_reference(ranks, ref):
+def test_dp_odometry_matches_reference(ref, ranks):
     r = ranks[0]
     np.testing.assert_allclose(r["dp_t"], ref["odom_t"], rtol=0, atol=ODOM_T_TOL)
     assert int(r["dp_surf_occ"]) == ref["odom_surf_occ"]
 
 
-def test_mp_odometry_matches_reference(ranks, ref, cases):
+def test_mp_odometry_matches_reference(ref, ranks, cases):
     r = ranks[0]
     np.testing.assert_allclose(r["mp_t"], ref["odom_t"], rtol=0, atol=ODOM_T_TOL)
     assert int(r["mp_surf_occ"]) == ref["odom_surf_occ"]
@@ -361,7 +361,7 @@ def test_mp_odometry_matches_reference(ranks, ref, cases):
     assert int(r["mp_rows"]) * 2 == map_rows(cases["tcfg"]["odom"].surf_map)
 
 
-def test_sharded_insert_matches_reference(ranks, mesh2_ref):
+def test_sharded_insert_matches_reference(mesh2_ref, ranks):
     """The 2-rank insert, gathered, equals JAX's sharded_insert on a 2-device
     mesh and its single-device insert, bit for bit; so do three inserts in a
     row."""
@@ -375,7 +375,7 @@ def test_sharded_insert_matches_reference(ranks, mesh2_ref):
     assert r["inc_occ"].sum() > 2000
 
 
-def test_sharded_knn_matches_reference(ranks, mesh2_ref):
+def test_sharded_knn_matches_reference(mesh2_ref, ranks):
     """The merged 2-rank KNN against JAX's sharded_knn on a 2-device mesh and
     its single-device knn: the same neighbours in the same order."""
     r = ranks[0]
@@ -388,7 +388,7 @@ def test_sharded_knn_matches_reference(ranks, mesh2_ref):
     assert r["knn_valid"].mean() > 0.9
 
 
-def test_pose_graph_matches_reference(ranks, mesh2_ref):
+def test_pose_graph_matches_reference(mesh2_ref, ranks):
     """The edge-sharded solve on 2 ranks against JAX's solve_pose_graph and
     its sharded solve on a 2-device mesh (quaternion sign is gauge)."""
     r = ranks[0]

@@ -203,11 +203,25 @@ def _circle0():
 
 
 @pytest.fixture(scope="module")
-def ref():
+def inputs():
     slam_scans, gps, lio, units = _inputs()
-    return dict(slam_scans=slam_scans, gps=gps, lio=lio, units=units,
-                u=_np(_reference_units(units)), slam=_reference_slam(slam_scans, gps),
-                liosam=_reference_liosam(lio))
+    return dict(slam_scans=slam_scans, gps=gps, lio=lio, units=units)
+
+
+# one reference run a fixture: a test builds only the ones it compares against
+@pytest.fixture(scope="module")
+def units_ref(inputs):
+    return _np(_reference_units(inputs["units"]))
+
+
+@pytest.fixture(scope="module")
+def slam_ref(inputs):
+    return _reference_slam(inputs["slam_scans"], inputs["gps"])
+
+
+@pytest.fixture(scope="module")
+def liosam_ref(inputs):
+    return _reference_liosam(inputs["lio"])
 
 
 def _t(a):
@@ -225,8 +239,8 @@ def _close_cov(t, j, rtol=1e-4):
     _close(t, j, atol=rtol * np.abs(j).max(), rtol=rtol)
 
 
-def test_preintegrate_masked_window(ref):
-    u, jpre_ = ref["units"], ref["u"][0]
+def test_preintegrate_masked_window(inputs, units_ref):
+    u, jpre_ = inputs["units"], units_ref[0]
     g, a, dt, m = (_t(x) for x in u["imu"])
     got = tpre.preintegrate(g, a, dt, m, _t(u["bg"]), _t(u["ba"]))
     for f in ("dq", "dp", "dv", "dt", "bg", "ba"):
@@ -237,12 +251,12 @@ def test_preintegrate_masked_window(ref):
     np.testing.assert_allclose(float(got.dt), float(dt[m].sum()), rtol=1e-6)
 
 
-def test_deskew_with_imu(ref):
-    u = ref["units"]
+def test_deskew_with_imu(inputs, units_ref):
+    u = inputs["units"]
     win = TImuWindow(*(_t(x) for x in u["imu"]))
     got = tls.deskew_with_imu(TScanGrid(*map(_t, u["scan"])), win, _t(u["bg"]),
                               _t(u["v_body"]), 0.1)
-    jd = ref["u"][1]
+    jd = units_ref[1]
     _close(got.xyz, jd.xyz, 1e-5)
     np.testing.assert_array_equal(got.mask.numpy(), jd.mask)
 
@@ -267,14 +281,14 @@ def _pose_close(tp, jp):
     _close(tp.q, jp.q, Q_TOL)
 
 
-def test_liosam_step_from_carried_over_state(ref):
+def test_liosam_step_from_carried_over_state(inputs, liosam_ref):
     """One step of the port from the reference's state after scan 2 matches
     the reference's scan 3."""
-    r = ref["liosam"]
+    r = liosam_ref
     state = convert.liosam_state_from_numpy(r["states"][2], "cpu")
     np.testing.assert_array_equal(state.engine.surf_map.keys.numpy(),
                                   r["states"][2].engine.surf_map.keys)
-    s, w = ref["lio"][2]
+    s, w = inputs["lio"][2]
     new, res = tls.process_liosam_scan(state, _scan(s), _win(w), T_LIOSAM)
     jst, jres = r["states"][3], r["results"][2]
     _pose_close(res.pose, jres.pose)
@@ -285,7 +299,7 @@ def test_liosam_step_from_carried_over_state(ref):
     assert int(res.stats.n_surf) > 100
 
 
-def test_sharded_liosam_step_on_two_ranks(ref, tmp_path):
+def test_sharded_liosam_step_on_two_ranks(inputs, liosam_ref, tmp_path):
     """parallel/sharding.sharded_liosam_step on two gloo ranks, each with its
     block of every scan's feature points, one step from each of the
     reference driver's states: both ranks alike, poses within 5e-3 m of the
@@ -294,22 +308,22 @@ def test_sharded_liosam_step_on_two_ranks(ref, tmp_path):
     tests/test_sharding_parity.py:211-213)."""
     from tests.test_torch_parallel import check_engine_ranks, engine_rank, launch_two
 
-    r = ref["liosam"]
+    r = liosam_ref
     runs = [(convert.liosam_state_from_numpy(r["states"][i], "cpu"), [(_scan(s), _win(w))])
-            for i, (s, w) in enumerate(ref["lio"])]
+            for i, (s, w) in enumerate(inputs["lio"])]
     ranks = launch_two(engine_rank, ("liosam", T_LIOSAM, runs), tmp_path)
     check_engine_ranks(ranks, [res.pose.t for res in r["results"]],
                        [st.engine.surf_map.occ for st in r["states"][1:]])
 
 
-def test_liosam_driver(ref):
+def test_liosam_driver(inputs, liosam_ref):
     """LioSamDriver over 4 scans on the circle with the IMU-rate stream on and
     a GPS fix on scan 1, then its synchronous loop-closure entry."""
-    r = ref["liosam"]
+    r = liosam_ref
     (q0, t0), v0 = _circle0()
     drv = tls.LioSamDriver(T_LIOSAM, x0=tse3.Pose(_t(q0), _t(t0)), v0=_t(v0),
                            emit_imu_rate=True, device="cpu")
-    for i, ((s, w), jres) in enumerate(zip(ref["lio"], r["results"])):
+    for i, ((s, w), jres) in enumerate(zip(inputs["lio"], r["results"])):
         res = drv.process(_scan(s), _win(w), gps=torch.tensor([0.0, 0.2, 0.0]) if i == 1 else None)
         _pose_close(res.pose, jres.pose)
         _close(res.v, jres.v, 1e-3)
@@ -327,15 +341,15 @@ def test_liosam_driver(ref):
     _close(drv.bank.t, r["bank"].t, T_TOL)
 
 
-def test_slam_driver(ref):
+def test_slam_driver(inputs, slam_ref):
     """SlamDriver over 6 scans with GPS fixes, an external closure after scan
     3 and the cadence's detection drained at finalize: poses, keyframes,
     edges and closures as the reference's."""
-    r = ref["slam"]
+    r = slam_ref
     drv = tslam.SlamDriver(T_SLAM, device="cpu")
     drv.state = drv.state._replace(engine=convert.state_from_numpy(r["start"], "cpu"))
     closed = None
-    for i, (s, fix, jres) in enumerate(zip(ref["slam_scans"], ref["gps"], r["results"])):
+    for i, (s, fix, jres) in enumerate(zip(inputs["slam_scans"], inputs["gps"], r["results"])):
         res = drv.process(_scan(s), gps=(_t(fix), 0.5) if i == 2 else _t(fix))
         _pose_close(res.pose, jres.pose)
         _counts_close(res.stats, jres.stats)
@@ -359,16 +373,16 @@ def test_slam_driver(ref):
     assert int(st.bank.count) >= 3 and int(st.edges.count) >= 5
 
 
-def test_slam_step_from_carried_over_state(ref):
+def test_slam_step_from_carried_over_state(inputs, slam_ref):
     """slam_state_from_numpy carries the reference's state over: from its
     state after scan 4 (bank, edges and the maps rebuilt by the closure), the
     port's step on scan 5 matches the reference's."""
-    r = ref["slam"]
+    r = slam_ref
     state = convert.slam_state_from_numpy(r["mid"], "cpu")
     back = convert.state_to_numpy(state)
     np.testing.assert_array_equal(back["bank"]["surf_xyz"], r["mid"].bank.surf_xyz)
     np.testing.assert_array_equal(back["edges"]["z_t"], r["mid"].edges.z_t)
-    new, res, added, cand, found = tslam._slam_step(state, _scan(ref["slam_scans"][-1]), T_SLAM)
+    new, res, added, cand, found = tslam._slam_step(state, _scan(inputs["slam_scans"][-1]), T_SLAM)
     jres = r["results"][-1]
     _pose_close(res.pose, jres.pose)
     _counts_close(res.stats, jres.stats)
@@ -376,11 +390,11 @@ def test_slam_step_from_carried_over_state(ref):
     assert int(new.last_kf_idx) == int(r["state"].last_kf_idx)
 
 
-def test_align_loop(ref):
+def test_align_loop(slam_ref):
     """Keyframe 2 registered against keyframe 0's cloud (1.4 m apart) on the
     slam run's bank after scan 4: z_rel, fitness and the acceptance as the
     reference's."""
-    r = ref["slam"]
+    r = slam_ref
     state = convert.slam_state_from_numpy(r["mid"], "cpu")
     z, fitness, ok = tlc.align_loop(state.bank, torch.tensor(2, dtype=torch.int32),
                                     torch.tensor(0, dtype=torch.int32), T_SLAM.loop)
