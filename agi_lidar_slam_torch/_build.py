@@ -3,7 +3,8 @@
 Every `csrc/*.cu` is compiled by its own nvcc process, all started together,
 for Hopper (sm_90a); the objects are linked into one shared library with a
 plain C interface under `agi_lidar_slam_torch/_build/`, named by a hash of the
-sources and flags so an edited source rebuilds. The library
+sources, the headers beside them (`*.cuh`) and the flags, so an edited source
+or header rebuilds. The library
 is loaded with ctypes; pointers and the stream pass as `c_void_p`, ints as
 `c_int`, floats as `c_float`. Nothing is downloaded and no prebuilt kernel
 package is used.
@@ -44,6 +45,17 @@ _SIGNATURES = {
     # matrices, eigenvalues out, eigenvectors out, batch, n, device, stream
     "sym_eig_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "sym_eig_error_string": ([_I], ctypes.c_char_p),
+    # q, R out, device, stream
+    "gn_rotation_launch": ([_P, _P, _I, _P], _I),
+    # R, t, corner xyz, centroid, direction, ok, R [x]x, nc, surf xyz, normal,
+    # offset, ok, rotation Jacobian, ns, huber, e_w, J_w, r_sw, Js_w out, device, stream
+    "gn_rows_launch": ([_P] * 7 + [_I] + [_P] * 5 + [_I, _F] + [_P] * 4 + [_I, _P], _I),
+    # delta, good, clip, q, t, sq, rows, pose out, rms out, degenerate out, device, stream
+    "gn_update_launch": ([_P, _P, _F] + [_P] * 7 + [_I, _P], _I),
+    # H, g, dofs mask, threshold, q, t, sq, rows, prev sq, prev rows, prev
+    # degenerate, pose out, rms out, degenerate out, device, stream
+    "gn_subset_launch": ([_P, _P, _I, _F] + [_P] * 10 + [_I, _P], _I),
+    "gn_step_error_string": ([_I], ctypes.c_char_p),
     # driver version out, runtime version out
     "probe_versions": ([ctypes.POINTER(_I), ctypes.POINTER(_I)], _I),
     "probe_error_string": ([_I], ctypes.c_char_p),
@@ -71,9 +83,10 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources and flags lives: the hash
+    covers every `*.cu` and the headers they include (`*.cuh`)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SRC_DIR.glob("*.cu")):
+    for src in sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libagi_lidar_slam_kernels-{h.hexdigest()[:16]}.so"

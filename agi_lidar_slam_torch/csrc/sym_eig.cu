@@ -3,10 +3,11 @@
 // Replaces no TPU kernel. On the TPU the Gauss-Newton solves call XLA's eigh
 // inside the jitted scan, where it costs nothing extra; on the card
 // torch.linalg.eigh reads its error flag back to the host after every call,
-// 8 times an odometry scan (estimators/gn_scan2map.solve_delta) and more in
-// the two-step solve (estimators/two_step._solve_subset), and so a scan can
-// neither run ahead of the host nor be captured in a CUDA graph. This kernel
-// computes the same function with nothing read back.
+// 8 times an odometry scan (estimators/gn_scan2map.solve_delta), and so a
+// scan could neither run ahead of the host nor be captured in a CUDA graph.
+// This kernel computes the same function with nothing read back. The
+// two-step solve's 3x3 steps (estimators/two_step._solve_subset) run the same
+// Jacobi code (jacobi.cuh) inside gn_iter.cu's gn_subset kernel on the card.
 //
 // What it computes: for each of `batch` row-major (n, n) float32 matrices,
 // n <= 8, read from the lower triangle as torch.linalg.eigh does, the
@@ -15,72 +16,30 @@
 // have no unique eigenvectors and neither routine promises which basis comes
 // out; a NaN or infinite entry gives NaN in every output of its matrix.
 //
-// Design: one thread a matrix, cyclic Jacobi in fp64 registers. The kernel is
+// Design: one thread a matrix, cyclic Jacobi in fp64 registers (jacobi.cuh,
+// shared with the Gauss-Newton step of gn_iter.cu). The kernel is
 // instantiated for each n, so every loop over rows and columns unrolls and
 // the packed lower triangle (n(n+1)/2 doubles) and the rotation matrix (n*n
-// doubles) stay in registers. A sweep rotates every (p, q) pair once; sweeps
-// stop when the off-diagonal square sum falls below 1e-30 of the matrix's
-// Frobenius square sum (about fp64's unit roundoff squared), or after
-// kMaxSweeps. fp64 because the normal-equation entries reach 1e4-1e6 while
-// the degeneracy threshold they are compared with is 10-100: the results are
-// rounded to float32 once, at the end. The eigenvalues are then sorted with
-// their columns by an unrolled exchange sort.
+// doubles) stay in registers. The results are rounded to float32 once, at
+// the end; the eigenvalues come sorted with their columns.
 //
 // What bounds it: neither bytes nor operations (a 6x6 matrix is 144 B in and
 // 168 B out, about 2000 flops): each rotation is a chain of dependent fp64
 // divisions and square roots, so one matrix takes the latency of its sweeps.
-// The port calls it on one matrix at a time, where the launch dominates; see
-// PERF.md for its time beside torch.linalg.eigh's.
+// See PERF.md for its time beside torch.linalg.eigh's.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "jacobi.cuh"
+
 namespace {
 
 constexpr int kMaxN = 8;
 constexpr int kThreads = 64;
-constexpr int kMaxSweeps = 16;
-constexpr double kOffTol = 1e-30;  // off-diagonal square sum over the Frobenius square sum
 
-// Index of entry (i, j) of a symmetric matrix in the packed lower triangle.
-__host__ __device__ constexpr int lo(int i, int j) {
-  return i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
-}
-
-// One Jacobi rotation in the (p, q) plane, p < q, that zeroes a(q, p), with
-// the rotation accumulated into the columns p and q of v (the classical
-// Jacobi method: Golub and Van Loan, Matrix Computations, section 8.5).
-template <int N>
-__device__ __forceinline__ void rotate(double (&a)[N * (N + 1) / 2], double (&v)[N][N], int p,
-                                       int q) {
-  const double apq = a[lo(q, p)];
-  if (apq == 0.0) return;
-  const double app = a[lo(p, p)], aqq = a[lo(q, q)];
-  const double theta = (aqq - app) / (2.0 * apq);
-  // the smaller root of t^2 + 2 theta t - 1 = 0; for |theta| near fp64's
-  // overflow t underflows to 0 and the rotation is the identity
-  const double t = copysign(1.0, theta) / (fabs(theta) + sqrt(theta * theta + 1.0));
-  const double c = rsqrt(t * t + 1.0);
-  const double s = t * c;
-  const double tau = s / (1.0 + c);
-  a[lo(p, p)] = app - t * apq;
-  a[lo(q, q)] = aqq + t * apq;
-  a[lo(q, p)] = 0.0;
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    if (r == p || r == q) continue;
-    const double arp = a[lo(r, p)], arq = a[lo(r, q)];
-    a[lo(r, p)] = arp - s * (arq + tau * arp);
-    a[lo(r, q)] = arq + s * (arp - tau * arq);
-  }
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    const double vrp = v[r][p], vrq = v[r][q];
-    v[r][p] = vrp - s * (vrq + tau * vrp);
-    v[r][q] = vrq + s * (vrp - tau * vrq);
-  }
-}
+using jacobi::lo;
 
 template <int N>
 __global__ void __launch_bounds__(kThreads)
@@ -91,59 +50,20 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int T = N * (N + 1) / 2;
   const float* src = in + (size_t)b * N * N;
   double a[T];
-  double v[N][N];
   double norm2 = 0.0;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      v[i][j] = i == j ? 1.0 : 0.0;
-      if (j <= i) {
-        const double x = (double)src[i * N + j];
-        a[lo(i, j)] = x;
-        norm2 += (i == j ? 1.0 : 2.0) * x * x;
-      }
+    for (int j = 0; j <= i; ++j) {
+      const double x = (double)src[i * N + j];
+      a[lo(i, j)] = x;
+      norm2 += (i == j ? 1.0 : 2.0) * x * x;
     }
   }
   const bool finite = isfinite(norm2);
-  if (finite) {
-#pragma unroll 1
-    for (int sweep = 0; sweep < kMaxSweeps; ++sweep) {
-      double off = 0.0;
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j)
-          if (j < i) off += a[lo(i, j)] * a[lo(i, j)];
-      if (!(off > kOffTol * norm2)) break;
-#pragma unroll
-      for (int p = 0; p < N; ++p)
-#pragma unroll
-        for (int q = 0; q < N; ++q)
-          if (q > p) rotate<N>(a, v, p, q);
-    }
-  }
   double d[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = a[lo(i, i)];
-  // ascending, each eigenvalue with its column
-#pragma unroll
-  for (int pass = 0; pass < N - 1; ++pass) {
-#pragma unroll
-    for (int i = 0; i < N - 1; ++i) {
-      if (i >= N - 1 - pass) continue;
-      const bool swap = d[i] > d[i + 1];
-      const double di = d[i], dn = d[i + 1];
-      d[i] = swap ? dn : di;
-      d[i + 1] = swap ? di : dn;
-#pragma unroll
-      for (int r = 0; r < N; ++r) {
-        const double x = v[r][i], y = v[r][i + 1];
-        v[r][i] = swap ? y : x;
-        v[r][i + 1] = swap ? x : y;
-      }
-    }
-  }
+  double v[N][N];
+  jacobi::eig_sorted<N>(a, norm2, d, v);
   const float nan = __int_as_float(0x7fffffff);
   float* out_v = vals + (size_t)b * N;
   float* out_m = vecs + (size_t)b * N * N;

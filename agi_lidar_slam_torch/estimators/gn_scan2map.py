@@ -5,6 +5,16 @@ OUTER iterations re-associate every feature (voxel-map KNN + closed-form
 line/plane fits); INNER iterations re-linearize against the fixed line and
 plane primitives and take a degeneracy-clamped 6x6 step on SE(3).
 
+What runs where. On CPU tensors every step is the torch code. On CUDA
+tensors a step's weighted rows are one kernel (`_rows`: gn_kernels.rotation
+and .rows, between the torch products R [x]x and n^T A), the sums over them
+stay torch (`normal_equations`), the 6x6 solve stays torch up to its clip
+(`_delta`, the eigendecomposition the sym_eig kernel) and the rest of the
+step is one kernel (`step`: gn_kernels.update, the clip, boxplus, the rms).
+The kernels round as the torch ops do, so the card's results are the torch
+code's bit for bit (`rows_ref`, `update_ref` and `step_ref` are that code, on
+any device); association is torch and the octant-KNN kernel on both devices.
+
 With `SolverConfig.cand_k >= k_neighbors` the association keeps a candidate
 cache (`associate_cached`): the first pass probes the map for cand_k
 candidates, later passes re-rank them at the moved pose unless it moved more
@@ -38,6 +48,7 @@ from ..map.planar import build_ktab
 from ..nn.knn import _first_k, knn, knn_cand, knn_reselect, make_cand
 from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
+from . import gn_kernels
 from .sym_eig import sym_eig
 
 
@@ -173,15 +184,24 @@ def associate_cached(
                            plane.normal, plane.offset, ok_s), cand
 
 
-def normal_equations(
-    pose: se3.Pose,
-    corners: PointBatch,
-    surfs: PointBatch,
-    corr: Correspondences,
-    cfg: SolverConfig,
-):
-    """Linearize at `pose` against fixed correspondences. Returns
-    (H (6,6), g (6,), (n_corner, n_surf, sq_sum, n_rows))."""
+def _rows(pose: se3.Pose, corners: PointBatch, surfs: PointBatch, corr: Correspondences,
+          cfg: SolverConfig):
+    """The weighted rows of the normal equations at `pose`: (e_w (Nc, 3),
+    J_w (Nc, 3, 6), r_sw (Ns,), Js_w (Ns, 6)). On CUDA tensors one kernel,
+    gn_kernels.rows, between the two products whose rounding order is
+    cuBLAS's own, which stay torch ops; on the CPU `rows_ref`."""
+    if pose.t.device.type != "cuda":
+        return rows_ref(pose, corners, surfs, corr, cfg)
+    R = gn_kernels.rotation(pose.q)
+    RA = torch.einsum("ij,njk->nik", R, so3.hat(corners.xyz))
+    Jr_s = torch.einsum(
+        "ni,nij->nj", corr.plane_n, -torch.einsum("ij,njk->nik", R, so3.hat(surfs.xyz)))
+    return gn_kernels.rows(R, pose.t, corners, surfs, corr, RA, Jr_s, cfg.huber_delta)
+
+
+def rows_ref(pose: se3.Pose, corners: PointBatch, surfs: PointBatch, corr: Correspondences,
+             cfg: SolverConfig):
+    """`_rows` as torch ops, on any device."""
     R = so3.quat_to_matrix(pose.q)
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
 
@@ -197,13 +217,6 @@ def normal_equations(
     Jc = torch.cat([Jr, P], dim=-1)  # (N,3,6)
     w_c = _huber_sqrt_weight(torch.linalg.vector_norm(e, dim=-1), cfg.huber_delta)
     w_c = torch.where(corr.ok_c, w_c, torch.zeros_like(w_c))
-    e_w = e * w_c[:, None]
-    J_w = Jc * w_c[:, None, None]
-    H = torch.einsum("nri,nrj->ij", J_w, J_w)
-    g = torch.einsum("nri,nr->i", J_w, e_w)
-    sq_sum = torch.sum(e_w * e_w)
-    n_c = torch.sum(corr.ok_c.to(torch.int32))
-    n_rows = 3.0 * n_c
 
     # ---- plane (surf) rows --------------------------------------------------
     sw = surfs.xyz @ R.T + pose.t
@@ -214,8 +227,26 @@ def normal_equations(
     Js = torch.cat([Jr_s, corr.plane_n], dim=-1)  # (N,6)
     w_s = _huber_sqrt_weight(torch.abs(r_s), cfg.huber_delta)
     w_s = torch.where(corr.ok_s, w_s, torch.zeros_like(w_s))
-    r_sw = r_s * w_s
-    Js_w = Js * w_s[:, None]
+    return e * w_c[:, None], Jc * w_c[:, None, None], r_s * w_s, Js * w_s[:, None]
+
+
+def normal_equations(
+    pose: se3.Pose,
+    corners: PointBatch,
+    surfs: PointBatch,
+    corr: Correspondences,
+    cfg: SolverConfig,
+):
+    """Linearize at `pose` against fixed correspondences. Returns
+    (H (6,6), g (6,), (n_corner, n_surf, sq_sum, n_rows)). The weighted rows
+    are one kernel on CUDA tensors (gn_kernels.rows, bit for bit the torch
+    ops), the torch ops on the CPU; the sums over them are torch's on both."""
+    e_w, J_w, r_sw, Js_w = _rows(pose, corners, surfs, corr, cfg)
+    H = torch.einsum("nri,nrj->ij", J_w, J_w)
+    g = torch.einsum("nri,nr->i", J_w, e_w)
+    sq_sum = torch.sum(e_w * e_w)
+    n_c = torch.sum(corr.ok_c.to(torch.int32))
+    n_rows = 3.0 * n_c
     H = H + torch.einsum("ni,nj->ij", Js_w, Js_w)
     g = g + torch.einsum("ni,n->i", Js_w, r_sw)
     sq_sum = sq_sum + torch.sum(r_sw * r_sw)
@@ -224,21 +255,58 @@ def normal_equations(
     return H, g, (n_c, n_s, sq_sum, n_rows)
 
 
+def _delta(H: torch.Tensor, g: torch.Tensor, eig_thresh: float):
+    """solve_delta's step before its clip, and the flags of the
+    eigendirections it keeps."""
+    vals, vecs = sym_eig(H)  # ascending
+    good = vals > eig_thresh
+    inv = torch.where(good, 1.0 / torch.where(good, vals, torch.ones_like(vals)),
+                      torch.zeros_like(vals))
+    return -(vecs * inv[None, :]) @ (vecs.T @ g), good
+
+
+def _clip(delta: torch.Tensor, good: torch.Tensor, clip: float):
+    """solve_delta's step `delta` scaled down to a translation of at most
+    `clip`, and its degenerate flag from the eigendirection flags `good`."""
+    # stability guard against pathological association (far outliers)
+    dt_norm = torch.linalg.vector_norm(delta[3:])
+    scale = torch.clamp(clip / torch.clamp(dt_norm, min=1e-12), max=1.0)
+    return delta * scale, ~torch.all(good)
+
+
 def solve_delta(H: torch.Tensor, g: torch.Tensor, cfg: SolverConfig):
     """Degeneracy-aware 6x6 solve: eigen-decompose H and zero the update along
     eigendirections with eigenvalue below the threshold (LIO-SAM
     LMOptimization). Eigenvector signs differ between libraries; delta does
     not depend on them. The eigendecomposition is `sym_eig`: on the card a
     kernel that reads nothing back to the host."""
-    vals, vecs = sym_eig(H)  # ascending
-    good = vals > cfg.degen_eig_thresh
-    inv = torch.where(good, 1.0 / torch.where(good, vals, torch.ones_like(vals)),
-                      torch.zeros_like(vals))
-    delta = -(vecs * inv[None, :]) @ (vecs.T @ g)
-    # stability guard against pathological association (far outliers)
-    dt_norm = torch.linalg.vector_norm(delta[3:])
-    scale = torch.clamp(cfg.translation_clip / torch.clamp(dt_norm, min=1e-12), max=1.0)
-    return delta * scale, ~torch.all(good)
+    return _clip(*_delta(H, g, cfg.degen_eig_thresh), cfg.translation_clip)
+
+
+def step(H: torch.Tensor, g: torch.Tensor, pose: se3.Pose, sq: torch.Tensor,
+         n_rows: torch.Tensor, cfg: SolverConfig):
+    """One inner iteration's step from its normal equations: solve_delta,
+    se3.boxplus, and the residual rms over the rows. Returns (pose, rms,
+    degenerate). The solve up to the clip is the torch ops (`_delta`); the
+    rest is one kernel on CUDA tensors, gn_kernels.update, bit for bit the
+    torch code, `update_ref`, which runs on the CPU."""
+    tail = gn_kernels.update if H.device.type == "cuda" else update_ref
+    return tail(*_delta(H, g, cfg.degen_eig_thresh), pose, cfg.translation_clip, sq, n_rows)
+
+
+def update_ref(delta: torch.Tensor, good: torch.Tensor, pose: se3.Pose, clip: float,
+               sq: torch.Tensor, n_rows: torch.Tensor):
+    """gn_kernels.update as torch ops, on any device: the clip, boxplus and
+    the rms."""
+    delta, degen = _clip(delta, good, clip)
+    return se3.boxplus(pose, delta), torch.sqrt(sq / torch.clamp(n_rows, min=1.0)), degen
+
+
+def step_ref(H: torch.Tensor, g: torch.Tensor, pose: se3.Pose, sq: torch.Tensor,
+             n_rows: torch.Tensor, cfg: SolverConfig):
+    """`step` as torch ops, on any device."""
+    return update_ref(*_delta(H, g, cfg.degen_eig_thresh), pose, cfg.translation_clip, sq,
+                      n_rows)
 
 
 def solve_scan2map(
@@ -299,8 +367,6 @@ def solve_scan2map(
         for _ in range(cfg.n_inner):
             H, g, (n_c, n_s, sq, n_rows) = normal_equations(pose, c_i, s_i, corr, cfg)
             H, g, n_c, n_s, sq, n_rows = allsum((H, g, n_c, n_s, sq, n_rows), group)
-            delta, degen = solve_delta(H, g, cfg)
-            pose = se3.boxplus(pose, delta)
-            rms = torch.sqrt(sq / torch.clamp(n_rows, min=1.0))
+            pose, rms, degen = step(H, g, pose, sq, n_rows, cfg)
             stats = GnStats(n_c, n_s, rms, degen)
     return pose, stats

@@ -19,7 +19,11 @@ It replaces no TPU kernel. torch.linalg.eigh on the card reads its error
 flag back to the host after every call, which stalls the host once per
 Gauss-Newton step (8 times an odometry scan) and makes a scan impossible to
 capture in a CUDA graph (runtime/pipeline.process_scan_chunk); the kernel
-reads nothing back. Its time beside torch.linalg.eigh's is in PERF.md.
+reads nothing back. The 6-dof steps (gn_scan2map.solve_delta, `_delta`) call
+it on the card; the two-step solve's 3x3 steps run its Jacobi code
+(csrc/jacobi.cuh) inside their own kernel (estimators/gn_kernels.subset_step)
+and call it only on the CPU. Its time beside torch.linalg.eigh's is in
+PERF.md.
 """
 
 from __future__ import annotations

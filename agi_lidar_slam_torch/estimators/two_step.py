@@ -14,8 +14,12 @@ dtheta_y, dtheta_z, dt_x, dt_y, dt_z):
   surf step   -> indices (0, 1, 5) = roll, pitch, z
   corner step -> indices (2, 3, 4) = yaw, x, y
 Every inner iteration takes the surf step, then the corner step linearized
-at the pose after it. Each step's 3x3 eigendecomposition is `sym_eig`: on
-the card a kernel that reads nothing back to the host.
+at the pose after it. On CPU tensors each step is the torch code, its 3x3
+eigendecomposition `sym_eig` (torch.linalg.eigh). On CUDA tensors the normal
+equations are gn_scan2map's (their rows one kernel) and the rest of a step,
+from H and g on, one kernel (`_step`: gn_kernels.subset_step, the same
+Jacobi code as the sym_eig kernel, the 3x3 solve, boxplus and the stats),
+bit for bit the torch code (`_step_ref`).
 
 `group` (the reference's `axis_name`) and `knn_fn` shard the point axis and
 the map exactly as in gn_scan2map.solve_scan2map: each step's partial sums
@@ -31,6 +35,7 @@ from ..geometry import se3
 from ..map.hash_map import HashVoxelMap
 from ..parallel.distributed import allsum
 from ..pointcloud.cloud import PointBatch
+from . import gn_kernels
 from .gn_scan2map import GnStats, _ktab, associate, normal_equations
 from .sym_eig import sym_eig
 
@@ -60,6 +65,28 @@ def _solve_subset(H: torch.Tensor, g: torch.Tensor, idx: tuple, eig_thresh: floa
     pos = {i: j for j, i in enumerate(idx)}
     full = torch.cat([d[pos[i]:pos[i] + 1] if i in pos else zero for i in range(6)])
     return full, ~torch.all(good)
+
+
+def _step(H: torch.Tensor, g: torch.Tensor, idx: tuple, pose: se3.Pose, cfg: SolverConfig,
+          sq: torch.Tensor, n_rows: torch.Tensor, prev: tuple | None = None):
+    """One of the two steps from its normal equations: _solve_subset on the
+    dofs `idx`, se3.boxplus, and the iteration's rms and degenerate flag,
+    merged with the earlier step's `prev = (sq, n_rows, degenerate)` where
+    given. Returns (pose, rms, degenerate). On CUDA tensors one kernel,
+    gn_kernels.subset_step, bit for bit the torch code; on the CPU
+    `_step_ref`."""
+    if H.device.type == "cuda":
+        return gn_kernels.subset_step(H, g, idx, cfg.degen_eig_thresh, pose, sq, n_rows, prev)
+    return _step_ref(H, g, idx, pose, cfg, sq, n_rows, prev)
+
+
+def _step_ref(H: torch.Tensor, g: torch.Tensor, idx: tuple, pose: se3.Pose, cfg: SolverConfig,
+              sq: torch.Tensor, n_rows: torch.Tensor, prev: tuple | None = None):
+    """`_step` as torch ops, on any device."""
+    d, degen = _solve_subset(H, g, idx, cfg.degen_eig_thresh)
+    if prev is not None:
+        sq, n_rows, degen = prev[0] + sq, prev[1] + n_rows, prev[2] | degen
+    return se3.boxplus(pose, d), torch.sqrt(sq / torch.clamp(n_rows, min=1.0)), degen
 
 
 def solve_scan2map_two_step(
@@ -108,13 +135,11 @@ def solve_scan2map_two_step(
             # step 1: surf rows only -> (roll, pitch, z)
             Hs, gs, (_, n_s, sq_s, nr_s) = normal_equations(pose, c_i, s_i, corr_surf, cfg)
             Hs, gs, n_s, sq_s, nr_s = allsum((Hs, gs, n_s, sq_s, nr_s), group)
-            d_s, degen_s = _solve_subset(Hs, gs, _SURF_IDX, cfg.degen_eig_thresh)
-            pose = se3.boxplus(pose, d_s)
+            pose, _, degen_s = _step(Hs, gs, _SURF_IDX, pose, cfg, sq_s, nr_s)
             # step 2: corner rows only -> (yaw, x, y), at the pose after step 1
             Hc, gc, (n_c, _, sq_c, nr_c) = normal_equations(pose, c_i, s_i, corr_corner, cfg)
             Hc, gc, n_c, sq_c, nr_c = allsum((Hc, gc, n_c, sq_c, nr_c), group)
-            d_c, degen_c = _solve_subset(Hc, gc, _CORNER_IDX, cfg.degen_eig_thresh)
-            pose = se3.boxplus(pose, d_c)
-            rms = torch.sqrt((sq_s + sq_c) / torch.clamp(nr_s + nr_c, min=1.0))
-            stats = GnStats(n_c, n_s, rms, degen_s | degen_c)
+            pose, rms, degen = _step(Hc, gc, _CORNER_IDX, pose, cfg, sq_c, nr_c,
+                                     prev=(sq_s, nr_s, degen_s))
+            stats = GnStats(n_c, n_s, rms, degen)
     return pose, stats

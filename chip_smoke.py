@@ -40,7 +40,8 @@ Phases, each printing its own lines:
   5. main    — preset_aloam_kitti64 over HDL-64-scale (64x1800) scans made on
                the card by the port's simulator, through
                runtime.pipeline.process_scan: finite poses, the kernel
-               launched 4 times per scan, healthy correspondence counts and
+               launched 4 times per scan, the Gauss-Newton kernels once a
+               step each (gn_expected), healthy correspondence counts and
                residuals, ATE against the simulator's ground truth, scans/s
                (over the scans before the last, whose kernel calls are
                captured for phase 25), then the host syncs of each scan in a
@@ -56,7 +57,10 @@ Phases, each printing its own lines:
                reconstruction V diag(w) V^T, orthonormality, and on the main
                phase's systems solve_delta's step against the step with the
                plain version; device times, times with a sync each call,
-               the library call's time and the bound;
+               the library call's time and the bound; then the 6-dof steps'
+               Gauss-Newton kernels on the same steps, bit for bit against the
+               torch ops they replace, and each kernel's device time on its
+               own launch beside those ops';
  6b. chunk   — runtime.pipeline.process_scan_chunk on the main phase's 12
                scans as 3 chunks of 4, each a replay of one CUDA graph: poses
                within 1e-6 m of the main phase's sequential poses on this
@@ -127,8 +131,11 @@ Phases, each printing its own lines:
                (ground and segmented non-zero), every per-frame error under
                0.35 m, no octant launch (full27 maps); ATE, RPE, drift,
                scans/s, host syncs by site, the stage split with segment_scan
-               on its own line; then preset_lego_vlp16() (4 x 3 two-step) over
-               the same scans under the same bound;
+               on its own line; the last scan's 20 two-step steps through
+               gn_subset, bit for bit against the torch step (_step_ref) on
+               the same inputs, and its device time beside that step's; then
+               preset_lego_vlp16() (4 x 3 two-step) over the same scans under
+               the same bound;
  18. lego-cpu — the same scans with CPU tensors: the pixels whose ground or
                segmented differs between card and CPU, each flipped test
                within 0.05 deg of its threshold; poses within 1e-3 where no
@@ -233,7 +240,8 @@ import torch.distributed as dist
 
 from agi_lidar_slam_torch import _build, config, preset_aloam_kitti64, presets
 from agi_lidar_slam_torch.config import MapConfig
-from agi_lidar_slam_torch.estimators import gn_scan2map, ieskf, sym_eig, two_step, window_map
+from agi_lidar_slam_torch.estimators import (gn_kernels, gn_scan2map, ieskf, sym_eig, two_step,
+                                              window_map)
 from agi_lidar_slam_torch.eval.metrics import ate_rmse, kitti_drift, rpe_rmse
 from agi_lidar_slam_torch.features import curvature, segmentation
 from agi_lidar_slam_torch.geometry import se3, so3
@@ -260,8 +268,8 @@ from agi_lidar_slam_torch.tools import run_slam as runner_cli
 # the timing and counting primitives live in the stage profiler; imported
 # here under their names, which knn_bench.py and gather_bench.py use too,
 # with its stage timer (Stages, patched) and its launch count (profiling)
-from agi_lidar_slam_torch.tools.profile_engines import (Stages, bound, counted_syncs, cuda_ms,
-                                                        device_ms, knn_bound, patched,
+from agi_lidar_slam_torch.tools.profile_engines import (Capture, Stages, bound, counted_syncs,
+                                                        cuda_ms, device_ms, knn_bound, patched,
                                                         profiling)
 
 SEED = 0
@@ -398,6 +406,34 @@ def captured_knn_calls(calls: list):
         yield calls
     finally:
         octant_knn.knn_octant = real
+
+
+def reset_launches() -> None:
+    """Zero the launch counters of the octant KNN, sym_eig and the
+    Gauss-Newton step kernels."""
+    octant_knn.launches = sym_eig.launches = 0
+    gn_kernels.launches.update(dict.fromkeys(gn_kernels.launches, 0))
+
+
+def gn_expected(cfg, scans: int) -> dict:
+    """The Gauss-Newton kernels' and sym_eig's launches `scans` scans of
+    process_scan make on the card: gn_rotation and gn_rows once a
+    normal-equations call, gn_update once a 6-dof step (which also launches
+    sym_eig), gn_subset once a two-step step; the odometry stage's 6-dof
+    steps included."""
+    s2m = cfg.solver.n_outer * cfg.solver.n_inner
+    odom = cfg.odom_solver.n_outer * cfg.odom_solver.n_inner if cfg.odometry_stage else 0
+    subset = 2 * s2m if cfg.two_step else 0
+    six = odom + (0 if cfg.two_step else s2m)
+    return {k: v * scans for k, v in {"gn_rotation": six + subset, "gn_rows": six + subset,
+                                      "gn_update": six, "gn_subset": subset,
+                                      "sym_eig": six}.items()}
+
+
+def check_gn_launches(label: str, cfg, scans: int, got: dict) -> None:
+    want = gn_expected(cfg, scans)
+    if got != want:
+        raise AssertionError(f"{label}: Gauss-Newton launches {got}, expected {want}")
 
 
 def filled_map(cfg, n_points: int, rng: np.random.Generator, device):
@@ -836,7 +872,7 @@ def phase_main(device) -> dict:
     state = moving_start(cfg, device)
     torch.cuda.synchronize()
     results, marks, calls, solves = [], [torch.cuda.Event(enable_timing=True)], [], []
-    octant_knn.launches = sym_eig.launches = 0
+    reset_launches()
     marks[0].record()
     for i, s in enumerate(scans):
         last = i == N_SCANS - 1
@@ -848,16 +884,14 @@ def phase_main(device) -> dict:
         torch.cuda.synchronize()
         results.append(res)
     launches, eig_launches = octant_knn.launches, sym_eig.launches
+    gn_launches = dict(gn_kernels.launches)
     first_ms = marks[0].elapsed_time(marks[1])
     # the last scan copies its kernel calls' arguments: outside the window
     steady = (N_SCANS - 1 - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-2])
 
     if launches != 4 * N_SCANS:
         raise AssertionError(f"octant KNN launched {launches} times, expected {4 * N_SCANS}")
-    n_solves = cfg.solver.n_outer * cfg.solver.n_inner
-    if eig_launches != n_solves * N_SCANS:
-        raise AssertionError(f"sym_eig launched {eig_launches} times, expected "
-                             f"{n_solves * N_SCANS} ({n_solves} Gauss-Newton steps a scan)")
+    check_gn_launches("main", cfg, N_SCANS, {**gn_launches, "sym_eig": eig_launches})
     est = np.stack([r.pose.t.cpu().numpy() for r in results])
     quats = np.stack([r.pose.q.cpu().numpy() for r in results])
     if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))):
@@ -866,8 +900,8 @@ def phase_main(device) -> dict:
     n_corner = [int(r.stats.n_corner) for r in results]
     rms = [float(r.stats.rms) for r in results]
     log(f"main: {N_SCANS} scans {RINGS}x{WIDTH} points/scan={int(scans[0].mask.sum())} "
-        f"octant_knn launches={launches} sym_eig launches={eig_launches} n_corner={n_corner} "
-        f"n_surf={n_surf}")
+        f"octant_knn launches={launches} sym_eig launches={eig_launches} Gauss-Newton kernel "
+        f"launches={gn_launches} n_corner={n_corner} n_surf={n_surf}")
     if min(n_surf[1:]) < 100:
         raise AssertionError(f"too few surf correspondences once the map exists: {n_surf}")
     if max(rms[1:]) >= 0.1:
@@ -886,7 +920,8 @@ def phase_main(device) -> dict:
             state, _ = process_scan(state, s, cfg)
     log(f"main: host syncs per scan {syncs} (sync debug mode); by call site: "
         f"{dict(sync_sites.most_common())}")
-    return {"launches": launches, "eig_launches": eig_launches, "solves": solves,
+    return {"launches": launches, "eig_launches": eig_launches, "gn_launches": gn_launches,
+            "solves": solves,
             "scans": scans, "gt": gt, "results": results, "ate": ate,
             "scans_per_s": steady, "calls": calls, "syncs": syncs,
             "sync_sites": dict(sync_sites)}
@@ -913,19 +948,29 @@ def phase_cpu(main: dict) -> None:
 
 @contextlib.contextmanager
 def captured_solves(solves: list):
-    """While open, record a copy of the arguments (H, g, solver config) of
-    every gn_scan2map.solve_delta call."""
-    real = gn_scan2map.solve_delta
+    """While open, record a copy of each 6-dof Gauss-Newton step: the
+    arguments of its normal_equations call ("ne") and of its step (H, g, the
+    pose, sq, n_rows, the solver config)."""
+    real_ne, real_step = gn_scan2map.normal_equations, gn_scan2map.step
+    pending = []
 
-    def wrapper(H, g, cfg):
-        solves.append((H.clone(), g.clone(), cfg))
-        return real(H, g, cfg)
+    def ne(pose, corners, surfs, corr, cfg):
+        pending.append((se3.Pose(pose.q.clone(), pose.t.clone()), corners, surfs,
+                        type(corr)(*(x.clone() for x in corr)), cfg))
+        return real_ne(pose, corners, surfs, corr, cfg)
 
-    gn_scan2map.solve_delta = wrapper
+    def stepped(H, g, pose, sq, n_rows, cfg):
+        solves.append((H.clone(), g.clone(), cfg, {
+            "ne": pending.pop() if pending else None,
+            "pose": se3.Pose(pose.q.clone(), pose.t.clone()), "sq": sq.clone(),
+            "n_rows": n_rows.clone()}))
+        return real_step(H, g, pose, sq, n_rows, cfg)
+
+    gn_scan2map.normal_equations, gn_scan2map.step = ne, stepped
     try:
         yield solves
     finally:
-        gn_scan2map.solve_delta = real
+        gn_scan2map.normal_equations, gn_scan2map.step = real_ne, real_step
 
 
 def synced_ms(fn, reps: int = 50) -> float:
@@ -1023,10 +1068,10 @@ def phase_eig(device, main: dict) -> dict:
     if len(solves) != 8:
         raise AssertionError(f"captured {len(solves)} solve_delta calls of the last main "
                              "scan, expected 8")
-    path_H = torch.stack([H for H, _, _ in solves])
+    path_H = torch.stack([H for H, _, _, _ in solves])
     out = {"cases": {k: eig_check(k, a) for k, a in cases.items()}}
     out["cases"]["path_batch"] = eig_check("path_batch", path_H)
-    for j, (H, _, _) in enumerate(solves):
+    for j, (H, _, _, _) in enumerate(solves):
         out["cases"][f"path{j}"] = eig_check(f"path{j}", H)
     bad = cases["spd6"][:4].clone()
     bad[1, 3, 2] = float("nan")
@@ -1038,7 +1083,7 @@ def phase_eig(device, main: dict) -> dict:
     log("kernel sym_eig nan: the NaN matrix's outputs are all NaN, its neighbours' finite")
 
     worst, worst64, plain64, skipped = 0.0, 0.0, 0.0, 0
-    for H, g, cfg in solves:
+    for H, g, cfg, _ in solves:
         dk, degk = gn_scan2map.solve_delta(H, g, cfg)
         dp, degp = plain_solve_delta(H, g, cfg)
         w64, v64 = torch.linalg.eigh(lower_sym(H).double())
@@ -1097,7 +1142,149 @@ def phase_eig(device, main: dict) -> dict:
             f"at the f32 rate)")
     out["timing"] = timing
     out["max_abs_err"] = max(c["vals_abs"] for c in out["cases"].values())
+    out["gn"] = gn_check(solves)
     return out
+
+
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """While open, the module's attributes `attrs` are the values given."""
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def captured_args(module, name: str, fn) -> tuple:
+    """Call fn() and return the arguments of its last call of module.name."""
+    spy = Capture(getattr(module, name))
+    with swapped(module, **{name: spy}):
+        fn()
+    return spy.args
+
+
+def bounded(n_bytes: int) -> dict:
+    return dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 0.0)))
+
+
+def less(total, *parts):
+    """total minus parts, None if any is (not measured)."""
+    return None if total is None or None in parts else total - sum(parts)
+
+
+def log_gn_timing(timing: dict) -> None:
+    for k, v in timing.items():
+        log(f"kernel gn timing {k}: device {v['device_ms']} ms (its own launch), the torch ops "
+            f"it replaces {v['plain_device_ms']} ms ({v['plain']}) (torch.profiler; None: not "
+            f"measured), bound {v['bound_ms']:.3g} ms ({v['bound_by']})")
+
+
+def gn_check(solves: list) -> dict:
+    """The 6-dof steps' kernels on the main phase's last-scan steps, bit for
+    bit against the torch ops they replace on the same inputs: gn_rotation
+    and gn_rows (gn_scan2map._rows) against rows_ref, gn_update
+    (gn_scan2map.step) against step_ref; then each kernel's device time on
+    its own launch at the path's shapes beside that of the torch ops it
+    replaces, and its bound."""
+    differ = {"gn_rows": 0, "gn_update": 0}
+    for H, g, cfg, rec in solves:
+        pose, corners, surfs, corr, _ = rec["ne"]
+        got = gn_scan2map._rows(pose, corners, surfs, corr, cfg)
+        want = gn_scan2map.rows_ref(pose, corners, surfs, corr, cfg)
+        differ["gn_rows"] += sum(int((a != b).sum()) for a, b in zip(got, want))
+        p, sq, nr = rec["pose"], rec["sq"], rec["n_rows"]
+        pk, rk, dk = gn_scan2map.step(H, g, p, sq, nr, cfg)
+        pt, rt, dt = gn_scan2map.step_ref(H, g, p, sq, nr, cfg)
+        differ["gn_update"] += sum(int((a != b).sum()) for a, b in (
+            (pk.q, pt.q), (pk.t, pt.t), (rk, rt), (dk, dt)))
+    if any(differ.values()):
+        raise AssertionError(f"gn kernels: entries that differ from the torch ops: {differ}")
+    H, g, cfg, rec = solves[-1]
+    pose, corners, surfs, corr, _ = rec["ne"]
+    p, sq, nr = rec["pose"], rec["sq"], rec["n_rows"]
+    nc, ns = corners.xyz.shape[0], surfs.xyz.shape[0]
+    rows_args = captured_args(gn_kernels, "rows",
+                              lambda: gn_scan2map._rows(pose, corners, surfs, corr, cfg))
+    update_args = captured_args(gn_kernels, "update",
+                                lambda: gn_scan2map.step(H, g, p, sq, nr, cfg))
+    R = rows_args[0]
+    # the torch ops _rows keeps around its kernels (R [x]x, n^T A), alone
+    with swapped(gn_kernels, rotation=lambda q: R, rows=lambda *a: None):
+        products_ms = device_ms(lambda: gn_scan2map._rows(pose, corners, surfs, corr, cfg))
+    quat_ms = device_ms(lambda: so3.quat_to_matrix(pose.q))
+    rows_ref_ms = device_ms(lambda: gn_scan2map.rows_ref(pose, corners, surfs, corr, cfg))
+    # bytes each must move. gn_rows: points, fits, flags, R [x]x or n^T A read, the rows
+    # written; gn_update: the step, its flags, the pose and stats read, pose and stats written
+    timing = {
+        "gn_rotation": {"device_ms": device_ms(lambda: gn_kernels.rotation(pose.q)),
+                        "plain_device_ms": quat_ms, "plain": "so3.quat_to_matrix",
+                        **bounded(16 + 36)},
+        "gn_rows": {"device_ms": device_ms(lambda: gn_kernels.rows(*rows_args)),
+                    "plain_device_ms": less(rows_ref_ms, products_ms, quat_ms),
+                    "plain": f"rows_ref {rows_ref_ms} ms less the products _rows keeps "
+                             f"{products_ms} ms and quat_to_matrix",
+                    "rows": (nc, ns),
+                    **bounded(nc * (36 + 1 + 36 + 12 + 72) + ns * (28 + 1 + 12 + 4 + 24) + 48)},
+        "gn_update": {"device_ms": device_ms(lambda: gn_kernels.update(*update_args)),
+                      "plain_device_ms": device_ms(lambda: gn_scan2map.update_ref(*update_args)),
+                      "plain": "update_ref: the clip, boxplus and the rms after _delta",
+                      **bounded(6 * 4 + 6 + 7 * 4 + 8 + 33)}}
+    log(f"kernel gn: {len(solves)} steps of the main phase's last scan: gn_rows and gn_update "
+        f"equal to the torch ops bit for bit ({differ})")
+    log_gn_timing(timing)
+    return {"differ": differ, "timing": timing}
+
+
+@contextlib.contextmanager
+def captured_subset_steps(steps: list):
+    """While open, record a copy of the arguments of every two_step._step
+    call (H, g, dofs, pose, solver config, sq, n_rows, prev)."""
+    real = two_step._step
+
+    def wrapper(H, g, idx, pose, cfg, sq, n_rows, prev=None):
+        steps.append((H.clone(), g.clone(), idx, se3.Pose(pose.q.clone(), pose.t.clone()), cfg,
+                      sq.clone(), n_rows.clone(),
+                      None if prev is None else tuple(x.clone() for x in prev)))
+        return real(H, g, idx, pose, cfg, sq, n_rows, prev)
+
+    with swapped(two_step, _step=wrapper):
+        yield steps
+
+
+def subset_check(steps: list, solver) -> dict:
+    """gn_subset (two_step._step) on the lego phase's last-scan steps, bit for
+    bit against _step_ref on the same inputs; then its device time on its own
+    launch for the surf step and the corner step (which merges the surf
+    step's stats) beside _step_ref's, and its bound."""
+    want = 2 * solver.n_outer * solver.n_inner
+    if len(steps) != want:
+        raise AssertionError(f"captured {len(steps)} two-step steps of the last lego scan, "
+                             f"expected {want}")
+    differ = 0
+    for args in steps:
+        (pk, rk, dk), (pt, rt, dt) = two_step._step(*args), two_step._step_ref(*args)
+        differ += sum(int((a != b).sum()) for a, b in (
+            (pk.q, pt.q), (pk.t, pt.t), (rk, rt), (dk, dt)))
+    if differ:
+        raise AssertionError(f"gn_subset: {differ} entries differ from _step_ref")
+    timing = {}
+    for label, args in (("gn_subset", steps[-1]), ("gn_subset surf step", steps[-2])):
+        H, g, idx, pose, cfg, sq, nr, prev = args
+        timing[label] = {
+            "device_ms": device_ms(lambda: gn_kernels.subset_step(
+                H, g, idx, cfg.degen_eig_thresh, pose, sq, nr, prev)),
+            "plain_device_ms": device_ms(lambda: two_step._step_ref(*args)),
+            "plain": "_step_ref: _solve_subset, boxplus and the stats", "dofs": idx,
+            # H, g, the pose, the stats and the earlier step's read, pose and stats written
+            **bounded(144 + 24 + 28 + 8 + (9 if prev is not None else 0) + 33)}
+    log(f"kernel gn: {len(steps)} two-step steps of the lego phase's last scan: gn_subset equal "
+        f"to _step_ref bit for bit ({differ} entries differ)")
+    log_gn_timing(timing)
+    return {"differ": {"gn_subset": differ}, "timing": timing}
 
 
 def chunk_of(scans: list) -> ScanGrid:
@@ -1128,15 +1315,20 @@ def phase_chunk(device, main: dict, card: str) -> dict:
     chunks = [chunk_of(scans[k:k + CHUNK]) for k in range(0, N_SCANS, CHUNK)]
     pipeline.chunk_graphs.clear()
     start = moving_start(cfg, device)
-    octant_knn.launches = sym_eig.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, first = pipeline.process_scan_chunk(start, chunks[0], cfg)
     torch.cuda.synchronize()
     first_call_s = time.perf_counter() - t0
     graph = the_graph(cfg, CHUNK)
-    per_scan = {"octant_knn": 4, "sym_eig": cfg.solver.n_outer * cfg.solver.n_inner}
-    capture = {"octant_knn": octant_knn.launches, "sym_eig": sym_eig.launches}
+    per_scan = {"octant_knn": 4, **gn_expected(cfg, 1)}
+
+    def counts():
+        return {"octant_knn": octant_knn.launches, "sym_eig": sym_eig.launches,
+                **gn_kernels.launches}
+
+    capture = counts()
     # the first call runs one scan eagerly before it captures CHUNK scans
     for k, v in capture.items():
         if v != per_scan[k] * (CHUNK + 1):
@@ -1147,8 +1339,7 @@ def phase_chunk(device, main: dict, card: str) -> dict:
         state, res = pipeline.process_scan_chunk(state, ch, cfg)
         results.append(res)
     torch.cuda.synchronize()
-    replay_calls = {"octant_knn": octant_knn.launches - capture["octant_knn"],
-                    "sym_eig": sym_eig.launches - capture["sym_eig"]}
+    replay_calls = {k: v - capture[k] for k, v in counts().items()}
     if any(replay_calls.values()):
         raise AssertionError(f"chunk: the replays called the kernels' wrappers: {replay_calls}")
     t, nc, ns = cat_results(results)
@@ -1549,12 +1740,13 @@ def phase_slam(device, main: dict, card: str) -> dict:
     margin exceeds POSE_T_TOL."""
     scans = main["scans"]
     marks, stages = [], Stages("time", cuda=True, nested=True)
-    octant_knn.launches = sym_eig.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     run = run_slam(device, scans, marks, stages)
     stages.end_step()
     cfg, drv, results, clo = (run[k] for k in ("cfg", "driver", "results", "closure"))
     launches, eig_launches = octant_knn.launches, sym_eig.launches
+    gn_launches = dict(gn_kernels.launches)
     first_ms = marks[0].elapsed_time(marks[1])
     steady = (SLAM_CLOSE_AFTER - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(
         marks[SLAM_CLOSE_AFTER])
@@ -1614,7 +1806,7 @@ def phase_slam(device, main: dict, card: str) -> dict:
         raise AssertionError("slam: the driver or its GPS fixes add host syncs to the odometry's")
     return {"results": results, "margins": margins, "closure": clo, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
-            "eig_launches": eig_launches,
+            "eig_launches": eig_launches, "gn_launches": gn_launches,
             "syncs": syncs, "stage_ms": {k: sum(v) for k, v in stages.values.items()},
             "n_kf": n_kf, "n_edges": n_edges}
 
@@ -1679,7 +1871,7 @@ def phase_liosam(device, main: dict, card: str) -> dict:
     sweeps, gt = lio_sweeps(N_SCANS + 2 * LIO_PROFILE_SCANS, device)
     drv = liosam_driver(cfg, device)
     per_scan, results = [], []
-    octant_knn.launches = sym_eig.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     marks = [torch.cuda.Event(enable_timing=True)]
     marks[0].record()
@@ -1692,6 +1884,7 @@ def phase_liosam(device, main: dict, card: str) -> dict:
         per_scan.append(octant_knn.launches - before)
         results.append(res)
     launches, eig_launches = octant_knn.launches, sym_eig.launches
+    gn_launches = dict(gn_kernels.launches)
     first_ms = marks[0].elapsed_time(marks[1])
     steady = (N_SCANS - N_WARM) * 1e3 / marks[N_WARM].elapsed_time(marks[-1])
     st = drv.state
@@ -1735,7 +1928,7 @@ def phase_liosam(device, main: dict, card: str) -> dict:
         + f"; on {card}")
     return {"sweeps": sweeps[:N_SCANS], "gt": gt[:N_SCANS], "results": results, "ate": ate,
             "scans_per_s": steady, "first_ms": first_ms, "launches": launches,
-            "eig_launches": eig_launches,
+            "eig_launches": eig_launches, "gn_launches": gn_launches,
             "syncs": syncs, "stage_ms": stage_ms}
 
 
@@ -1804,7 +1997,7 @@ def phase_livox(device, card: str) -> dict:
     gt = livox_gt(N_SCANS)
     drv = livox_driver(device)
     per_scan, results, engaged, calls = [], [], [], []
-    octant_knn.launches = sym_eig.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     marks = [torch.cuda.Event(enable_timing=True)]
     marks[0].record()
@@ -1819,6 +2012,7 @@ def phase_livox(device, card: str) -> dict:
         results.append(res)
         engaged.append(drv.engaged)
     launches, eig_launches = octant_knn.launches, sym_eig.launches
+    gn_launches = dict(gn_kernels.launches)
     ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(N_SCANS)]
     first_engaged = engaged.index(True) if True in engaged else None
     log(f"livox: {N_SCANS} sweeps {RINGS}x{WIDTH}, LivoxConfig(), init_frames "
@@ -1890,7 +2084,7 @@ def phase_livox(device, card: str) -> dict:
     return {"sweeps": sweeps[:N_SCANS], "gt": gt, "results": results, "engaged": engaged,
             "ate": ate, "scans_per_s": steady, "first_ms": ms[0],
             "engage_ms": ms[first_engaged], "launches": launches, "per_scan": per_scan,
-            "eig_launches": eig_launches,
+            "eig_launches": eig_launches, "gn_launches": gn_launches,
             "syncs": syncs, "sync_sites": dict(sites), "stage_ms": stage_ms, "calls": calls}
 
 
@@ -2007,14 +2201,16 @@ def is_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def drive(step, items, device, calls: list | None = None) -> dict:
+def drive(step, items, device, calls: list | None = None, steps: list | None = None) -> dict:
     """step(item) -> pose over `items` on `device`, synchronized after each:
     the poses (quaternions as x, y, z, w), the octant launches per item and,
     on the card, the first item's ms and items/s over those after the first
     N_WARM and before the last (CUDA events). With `calls`, the octant calls
     of the last item are captured there (outside the timing window), the
-    first on each map. The sym_eig launches of the run are counted too."""
-    octant_knn.launches = sym_eig.launches = 0
+    first on each map; with `steps`, the last item's two-step steps
+    (captured_subset_steps). The launches of sym_eig and the Gauss-Newton
+    kernels over the run are counted too."""
+    reset_launches()
     per_scan, est_t, est_q = [], [], []
     cuda = is_card(device)
     if cuda:
@@ -2023,8 +2219,12 @@ def drive(step, items, device, calls: list | None = None) -> dict:
         marks[0].record()
     for i, item in enumerate(items):
         before = octant_knn.launches
-        last = calls is not None and i == len(items) - 1
-        with (captured_knn_calls(calls) if last else contextlib.nullcontext()):
+        last = i == len(items) - 1
+        with contextlib.ExitStack() as capture:
+            if last and calls is not None:
+                capture.enter_context(captured_knn_calls(calls))
+            if last and steps is not None:
+                capture.enter_context(captured_subset_steps(steps))
             pose = step(item)
         if cuda:
             marks.append(torch.cuda.Event(enable_timing=True))
@@ -2037,7 +2237,8 @@ def drive(step, items, device, calls: list | None = None) -> dict:
     if not (np.all(np.isfinite(est_t)) and np.all(np.isfinite(est_q))):
         raise AssertionError("non-finite pose")
     out = {"per_scan": per_scan, "launches": octant_knn.launches,
-           "eig_launches": sym_eig.launches, "est_t": est_t, "est_q": est_q}
+           "eig_launches": sym_eig.launches, "gn_launches": dict(gn_kernels.launches),
+           "est_t": est_t, "est_q": est_q}
     if cuda:
         out["first_ms"] = marks[0].elapsed_time(marks[1])
         out["scans_per_s"] = ((len(items) - 1 - N_WARM) * 1e3
@@ -2048,7 +2249,7 @@ def drive(step, items, device, calls: list | None = None) -> dict:
 
 
 def run_feature_engine(cfg, scans, device, odom: list | None = None,
-                       calls: list | None = None) -> dict:
+                       calls: list | None = None, steps: list | None = None) -> dict:
     """process_scan from rest over `scans` on `device` (drive), with the
     results and the final state; with `odom`, the odometry stage's GnStats
     and launches (odometry_stage_spy)."""
@@ -2060,7 +2261,7 @@ def run_feature_engine(cfg, scans, device, odom: list | None = None,
         return res.pose
 
     with (odometry_stage_spy(cfg, odom) if odom is not None else contextlib.nullcontext()):
-        out = drive(step, scans, device, calls)
+        out = drive(step, scans, device, calls, steps)
     return {**out, "state": box[0], "results": results}
 
 
@@ -2125,6 +2326,9 @@ def phase_aloam_ref(device, card: str) -> dict:
     if len(odom) != N_SCANS or any(n != 0 for n in odom_n) or any(n != 4 for n in s2m_n):
         raise AssertionError("aloam-ref: the octant kernel must run 4 times a scan in the "
                              "scan-to-map solve and never in the odometry stage")
+    if is_card(device):
+        check_gn_launches("aloam-ref", cfg, len(scans), {**run["gn_launches"],
+                                                         "sym_eig": run["eig_launches"]})
     if min(c + s for c, s in odom_corr[1:]) == 0:
         raise AssertionError(f"aloam-ref: the odometry stage found no correspondences: "
                              f"{odom_corr}")
@@ -2183,8 +2387,10 @@ def phase_lego(device, card: str) -> dict:
     every scan, every per-frame error under 0.35 m, no octant launch. Prints
     the segmentation counts, ATE, RPE, drift, scans/s, host syncs by site
     and the stage split (segment_scan on its own line: it runs inside the
-    feature extraction). Then preset_lego_vlp16() (the engine default, 4 x 3
-    two-step) over the same scans: finite, under the same bound."""
+    feature extraction). On the card, the last scan's two-step steps are
+    captured and held to the torch step (subset_check). Then
+    preset_lego_vlp16() (the engine default, 4 x 3 two-step) over the same
+    scans: finite, under the same bound."""
     cfg = presets.preset_lego_vlp16_ref()
     scans, gt_t, gt_q = ref_arc(device, 0, 18.0, LEGO_RINGS)
     segs = seg_counts(scans)
@@ -2193,9 +2399,14 @@ def phase_lego(device, card: str) -> dict:
         f"(ground, segmented, clusters) per scan {counts}")
     if any(g == 0 or s == 0 for g, s, _ in counts):
         raise AssertionError("lego: a scan without ground or segmented pixels")
-    run = run_feature_engine(cfg, scans, device)
+    steps = []
+    run = run_feature_engine(cfg, scans, device, steps=steps)
     if run["launches"] != 0:
         raise AssertionError(f"lego: {run['launches']} octant launches on full27 maps")
+    if is_card(device):
+        check_gn_launches("lego", cfg, len(scans), {**run["gn_launches"],
+                                                    "sym_eig": run["eig_launches"]})
+        run["subset"] = subset_check(steps, cfg.solver)
     err = frame_errors(run, gt_t, "lego")
     m = traj_metrics(run["est_t"], run["est_q"], gt_t, gt_q)
     log(f"lego: octant_knn launches {run['launches']}; n_corner "
@@ -2207,7 +2418,7 @@ def phase_lego(device, card: str) -> dict:
     targets = [(curvature, "segment_scan")] + [(pipeline, n) for n in (
         "extract_features_timed", "voxel_downsample_aux", "solve_scan2map_two_step",
         "insert_with_stats", "bound_map")] + [(two_step, n) for n in (
-            "associate", "normal_equations", "_solve_subset")]
+            "associate", "normal_equations", "_step")]
     prof = feature_syncs_and_stages(cfg, scans, device, targets, "lego", card)
     default = run_feature_engine(config.preset_lego_vlp16(), scans, device)
     derr = frame_errors(default, gt_t, "lego (preset_lego_vlp16)")
@@ -3233,6 +3444,8 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
 
     g = prb["row_gather_sum"]
     s = prb["scale2"]["256x128"]
+    gn_timing = {**eig["gn"]["timing"], **lego_run["subset"]["timing"]}
+    gn_differ = {**eig["gn"]["differ"], **lego_run["subset"]["differ"]}
     path_keys = ("device_ms", "plain_device_ms", "call_ms", "bound_ms", "l2_ms", "live",
                  "hits", "distinct_rows", "tile_rows", "max_abs_err")
     return {"kernels": [
@@ -3317,6 +3530,25 @@ def kernels_line(kern: dict, prb: dict, main_run: dict, lio_run: dict, slam_run:
          "bound_by": eig["timing"]["path 1x6x6"]["bound_by"],
          "library_ms": eig["timing"]["path 1x6x6"]["library_device_ms"],
          "by_shape": eig["timing"], "cases": eig["cases"], "solve_delta": eig["delta"]},
+        *({"name": name, "route": "cuda", "source": "agi_lidar_slam_torch/csrc/gn_iter.cu",
+           "replaces": None,
+           "note": "not a TPU kernel: a Gauss-Newton step's rows and tail, bit for bit the torch "
+                   "ops (normal_equations' rows, solve_delta's clip, se3.boxplus)",
+           "launches": main_run["gn_launches"][name],
+           "launches_by_path": {"odom": main_run["gn_launches"][name],
+                                "slam": slam_run["gn_launches"][name],
+                                "liosam": liosam_run["gn_launches"][name],
+                                "livox": livox_run["gn_launches"][name],
+                                "aloam-ref": aloam_run["gn_launches"][name],
+                                "lego-ref": lego_run["gn_launches"][name],
+                                **{k: v["gn_launches"][name] for k, v in preset_runs.items()
+                                   if "gn_launches" in v}},
+           **{k: gn_timing[name][k] for k in ("device_ms", "plain_device_ms", "plain",
+                                               "bound_ms", "bound_by")},
+           **({"surf_step": gn_timing["gn_subset surf step"]} if name == "gn_subset" else {}),
+           "differ": gn_differ.get(name, gn_differ["gn_rows"]),
+           "versions": gn_kernels.versions()}
+          for name in gn_kernels.launches),
     ]}
 
 
@@ -3334,6 +3566,15 @@ def main() -> int:
         f"cuda {torch.version.cuda} | matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
+    running = gn_kernels.versions()
+    log(f"versions: {running}; the Gauss-Newton kernels' rounding orders were measured on "
+        f"{gn_kernels.MEASURED_ON}")
+    if running != gn_kernels.MEASURED_ON:
+        raise AssertionError(
+            f"torch, CUDA or cuBLAS is not the version the Gauss-Newton kernels copy the "
+            f"rounding orders of ({running} against {gn_kernels.MEASURED_ON}): measure the "
+            f"orders again (csrc/gn_iter.cu's source note), check the kernels with "
+            f"tests/test_torch_gn_kernels.py, then set gn_kernels.MEASURED_ON")
 
     t0 = time.perf_counter()
     ptxas = io.StringIO()
