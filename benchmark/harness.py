@@ -6,33 +6,56 @@ Everything a cell is made of is found by name, from BENCHMARK.json at the
 root of the checkout:
 
   benchmark/workloads/<cell>.json    the cell's run: its config and traffic
-                                     (as BENCHMARK.json names them), chunks
+                                     (as BENCHMARK.json names them), sweeps
                                      checked, the traced sub-window, limits
   <config's file>                    benchmark/configs/<config>.json: the
-                                     program's engine module, its preset
-                                     constructor and the preset's values
-                                     (held to the constructor), the sensor
+                                     engine's adapter, the program's engine
+                                     module, its preset constructor and the
+                                     preset's values, the sensor
+  benchmark/engines/<adapter>.py     what the harness knows of one engine
+                                     (below), and its plain reference
   benchmark/traffic/<traffic>.json   the scene and the feed, read by the one
                                      generator, benchmark/traffic/generator.py
   benchmark/metrics/<metric>.py      one reader a per-layer metric: read(trace)
 
+An adapter gives
+  program(config)                    (the engine module, its config), held to
+                                     the configuration file's values
+  initial_state(engine, cfg, lap, device)  the engine moving at the lap's start
+  CALLS                              {call: the engine's function}, a call
+                                     being what a traffic's feed names
+  inputs(engine, lap, start, n, call)  what `call` takes for the lap's sweeps
+                                     start .. start + n - 1 (the IMU samples
+                                     of those sweeps too, for an IMU engine)
+  poses(result)                      (q (n, 4), t (n, 3)) of a call's sweeps
+  Checker(config, device)            the plain reference: initial_state(lap),
+                                     as_reference(program state),
+                                     step(reference state, lap, start, n,
+                                     program poses, program state after or
+                                     None) -> reference state after,
+                                     numbers(), control(call)
+  STAGED_CALL, CAPTURE_FLAGS         the staged pass's per-sweep call, and the
+                                     capture flag of each call captured into a
+                                     CUDA graph (benchmark/staged.py)
+  capacities(config, lap)            optional: a report for the traced run
+
 A run makes one lap of sweeps on the card from the seed, starts the
-engine moving at the lap's speed, drives the warm-up chunks through the
-program's chunk call (the first captures its CUDA graph), runs the same loop
-unmeasured for PRELOAD_S (the pre-load, which setup_s leaves out), then
-measures for `seconds`: a closed loop that hands in the lap's chunks in turn,
-lap after lap, keeping `ahead` chunks in flight, and reads each chunk's poses
-back to the host. After the window it checks against the plain reference
-(benchmark/check.py) the run's first chunks, from the reference's own start,
-and a seeded sample of the window's chunks. With --trace 1 it also times
-every chunk of the window with CUDA events, profiles a short sub-window and
-a staged pass (benchmark/staged.py), and reports the per-layer metrics in
-place of the end-to-end ones.
+engine moving at the lap's speed, drives the warm-up calls through the
+feed's call (a graphed call captures its CUDA graph at the first), runs the
+same loop unmeasured for PRELOAD_S (the pre-load, which setup_s leaves out),
+then measures for `seconds`: a closed loop that hands in the lap's sweeps,
+`chunk` a call, in turn, lap after lap, keeping `ahead` calls in flight, and
+reads each call's poses back to the host. After the window it checks against
+the plain reference (benchmark/check.py, the adapter's Checker) the run's
+first calls, from the reference's own start, and a seeded sample of the
+window's calls. With --trace 1 it also times every call of the window with
+CUDA events, profiles a short sub-window and a staged pass
+(benchmark/staged.py), and reports the per-layer metrics in place of the
+end-to-end ones.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import importlib
 import importlib.util
@@ -51,8 +74,6 @@ import torch
 from torch.utils import _pytree as pytree
 
 from benchmark import caps, check, staged
-from benchmark.reference.cloud import ScanGrid as RScanGrid
-from benchmark.reference.se3 import Pose as RPose
 from benchmark.traffic.generator import make_lap
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -113,16 +134,20 @@ def load_reader(cell: Cell, metric: str):
     return mod
 
 
-def load_program(config: dict):
-    """(the engine module, its config from the preset constructor); raises
-    where the constructor no longer gives the configuration file's values."""
-    engine = importlib.import_module(config["engine"])
-    mod, fn = config["preset"].split(":")
-    cfg = getattr(importlib.import_module(mod), fn)()
-    if dataclasses.asdict(cfg) != config["pipeline"]:
-        raise ValueError(f"{config['preset']} no longer gives the values of "
-                         f"configuration {config['name']!r}")
-    return engine, cfg
+_adapters: dict = {}  # path -> module: one module an adapter file in a process
+
+
+def load_adapter(cell: Cell):
+    """The module benchmark/engines/<adapter>.py that the cell's
+    configuration names under `adapter`."""
+    path = cell.root / "benchmark" / "engines" / f"{cell.config['adapter']}.py"
+    if path not in _adapters:
+        spec = importlib.util.spec_from_file_location(
+            "benchmark_engine_" + cell.config["adapter"].replace(".", "_").replace("-", "_"), path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _adapters[path] = mod
+    return _adapters[path]
 
 
 def forbidden_modules() -> list[str]:
@@ -159,48 +184,41 @@ def note(*parts) -> None:
 
 
 class Chunk(NamedTuple):
-    index: int  # chunk number since the engine started
-    start: int  # first sweep of the chunk in the lap tensors
+    index: int  # call number since the engine started
+    start: int  # first sweep of the call in the lap tensors
     state_in: object  # the program state handed in (None where not kept)
     state_out: object  # and the one it gave back (None where not kept)
-    poses: tuple  # (q, t) of the chunk's scans
+    poses: tuple  # (q, t) of the call's sweeps
 
 
 class Feed:
-    """Hands the lap's chunks to the program in turn and reads their poses
-    back: on the card through pinned buffers and events, so that reading
-    chunk k waits for chunk k alone."""
+    """Hands the lap's sweeps to the program's call, `chunk` a call, in turn
+    and reads their poses back: on the card through pinned buffers and
+    events, so that reading call k waits for call k alone."""
 
-    def __init__(self, lap, engine, cfg, step, chunk: int, device):
-        self.lap, self.engine, self.cfg, self.step, self.C = lap, engine, cfg, step, chunk
+    def __init__(self, lap, adapter, engine, cfg, step, call: str, chunk: int, device):
+        self.lap, self.adapter, self.engine, self.cfg = lap, adapter, engine, cfg
+        self.step, self.call, self.C = step, call, chunk
         self.cuda = device.type == "cuda"
         self.ring = [torch.empty((chunk, 7), pin_memory=self.cuda) for _ in range(4)]
         self.k = 0
 
-    def scans(self, start: int):
-        C = self.C
-        return self.engine.ScanGrid(self.lap.xyz[start:start + C], self.lap.mask[start:start + C],
-                                    self.lap.time[start:start + C])
-
-    def ref_scans(self, start: int) -> RScanGrid:
-        C = self.C
-        return RScanGrid(self.lap.xyz[start:start + C], self.lap.mask[start:start + C],
-                         self.lap.time[start:start + C])
-
     def hand_in(self, state):
-        """Hand in the next chunk: (its start, new state, result, host ms
-        of the call)."""
+        """Hand in the next call's sweeps: (their start, new state, result,
+        host ms of the call)."""
         start = (self.k * self.C) % self.lap.n
         t0 = time.perf_counter()
-        new_state, res = self.step(state, self.scans(start), self.cfg)
+        new_state, res = self.step(state, self.adapter.inputs(self.engine, self.lap, start,
+                                                              self.C, self.call), self.cfg)
         ms = (time.perf_counter() - t0) * 1e3
         self.k += 1
         return start, new_state, res, ms
 
     def send_poses(self, res):
-        """Start the copy of the chunk's poses to the host; returns a handle."""
+        """Start the copy of the call's poses to the host; returns a handle."""
         buf = self.ring[self.k % len(self.ring)]
-        buf.copy_(torch.cat([res.pose.t, res.pose.q], dim=-1), non_blocking=self.cuda)
+        q, t = self.adapter.poses(res)
+        buf.copy_(torch.cat([t, q], dim=-1), non_blocking=self.cuda)
         if not self.cuda:
             return buf, None
         ev = torch.cuda.Event()
@@ -229,14 +247,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
         step: Callable | None = None, sensor: dict | None = None) -> dict:
     """One run of `cell`; returns the result line's object (with `checks`,
     each compared number beside its limit). `step` replaces the program's
-    chunk call and `sensor` the configuration's sensor (the tests use both:
-    to break the timed path underneath, and to run at a CPU's size)."""
+    call and `sensor` the configuration's sensor (the tests use both: to
+    break the timed path underneath, and to run at a CPU's size)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
-    engine, cfg = load_program(cell.config)
-    step = step or engine.process_scan_chunk
-    sensor = sensor or cell.config["sensor"]
+    adapter = load_adapter(cell)
+    engine, cfg = adapter.program(cell.config)
     scene, feed_cfg = cell.traffic["scene"], cell.traffic["feed"]
+    call = feed_cfg["call"]
+    step = step or getattr(engine, adapter.CALLS[call])
+    sensor = sensor or cell.config["sensor"]
     C, ahead = int(feed_cfg["chunk"]), int(feed_cfg["ahead"])
     warm = int(scene["warmup_scans"])
     own = int(cell.workload["check"]["own_start_scans"])
@@ -246,11 +266,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
     readers = {m["name"]: load_reader(cell, m["name"]) for m in cell.per_layer} if trace else {}
 
     lap = make_lap(scene, sensor, seed, C, device)
-    feed = Feed(lap, engine, cfg, step, C, device)
-    state = engine.init_state(cfg, device)
-    state = state._replace(pose=state.pose._replace(q=lap.start.q.clone(), t=lap.start.t.clone()),
-                           prev_pose=state.prev_pose._replace(q=lap.before_start.q.clone(),
-                                                              t=lap.before_start.t.clone()))
+    feed = Feed(lap, adapter, engine, cfg, step, call, C, device)
+    state = adapter.initial_state(engine, cfg, lap, device)
     # the run's first chunks, which the reference follows from its own start:
     # the warm-up (each chunk's state kept) and the chunks after it up to
     # `own_start_scans` (poses kept, and the state after the last)
@@ -258,7 +275,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
     for _ in range(warm // C):
         idx = feed.k
         start, new_state, res, _ = feed.hand_in(state)
-        first_chunks.append(Chunk(idx, start, state, new_state, (res.pose.q, res.pose.t)))
+        first_chunks.append(Chunk(idx, start, state, new_state, adapter.poses(res)))
         state = new_state
     # the pre-load: the same closed loop, unmeasured, for PRELOAD_S, and at
     # least until the reference's own-start stretch is complete
@@ -272,7 +289,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
         if len(first_chunks) * C < own:
             last = len(first_chunks) * C + C == own
             first_chunks.append(Chunk(idx, start, None, new_state if last else None,
-                                      (res.pose.q, res.pose.t)))
+                                      adapter.poses(res)))
         state = new_state
         pre.append(feed.send_poses(res))
         while len(pre) > ahead:
@@ -346,8 +363,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
         if sampled:
             s_in, s_out, q, tr_ = store[len(kept)]
             for dst, src in zip(pytree.tree_flatten((s_in, s_out, q, tr_))[0],
-                                pytree.tree_flatten((state, new_state, res.pose.q,
-                                                     res.pose.t))[0]):
+                                pytree.tree_flatten((state, new_state,
+                                                     *adapter.poses(res)))[0]):
                 dst.copy_(src)
             kept.append(Chunk(idx, start, s_in, s_out, (q, tr_)))
         state = new_state
@@ -391,8 +408,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
         if cuda:
             state = staged.profile_window(feed, state, int(cell.workload["trace"]["chunks"]),
                                           ahead, tr)
-        staged.staged_pass(engine, cfg, state, feed,
-                           int(cell.workload["trace"]["staged_scans"]), readers, tr, cuda)
+        staged.staged_pass(feed, state, int(cell.workload["trace"]["staged_scans"]), readers,
+                           tr, cuda)
         note(f"staged pass: {tr.staged_scans} scans, device ms by stage "
              f"{ {k: round(v, 4) for k, v in tr.stage_ms.items()} }, by recorded call "
              f"{ {k: round(v, 4) for k, v in tr.call_device_ms.items()} }, calls "
@@ -409,7 +426,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
             breakdown = {"device_ops": w.device_ops, "idle_gaps": w.idle_gaps}
             note(f"traced sub-window: {w.scans} scans, {w.kernels_in_calls} kernels launched in "
                  f"the chunk calls, {w.kernels_unlinked} with no launch found")
-        note(caps.report(caps.feature_caps(cell.config["pipeline"], lap)))
+        if hasattr(adapter, "capacities"):
+            note(caps.report(adapter.capacities(cell.config, lap)))
     else:
         values = {"scans_per_s": finished / seconds,
                   "latency_p95_ms": percentile(latencies, 95) if latencies else math.inf,
@@ -424,15 +442,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
     t_check = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    checker = check.Checker(cell.config["pipeline"], device)
-    ref_state = checker.initial_state(RPose(lap.start.q.clone(), lap.start.t.clone()),
-                                      RPose(lap.before_start.q.clone(),
-                                            lap.before_start.t.clone()))
+    checker = adapter.Checker(cell.config, device)
+    ref_state = checker.initial_state(lap)
     for ch in first_chunks:
-        ref_state = checker.chunk(ref_state, feed.ref_scans(ch.start), ch.poses, ch.state_out)
+        ref_state = checker.step(ref_state, lap, ch.start, C, ch.poses, ch.state_out)
     for ch in kept:
-        checker.chunk(check.as_reference(ch.state_in, checker.template),
-                      feed.ref_scans(ch.start), ch.poses, ch.state_out)
+        checker.step(checker.as_reference(ch.state_in), lap, ch.start, C, ch.poses, ch.state_out)
     numbers = checker.numbers()
     limits = cell.workload["limits"]
     correct = attempted > 0 and failed == 0 and check.is_correct(numbers, limits)

@@ -4,13 +4,14 @@
         --control-seeds 101 102 103 --seconds 5
 
 It runs the cell in one process, once a seed, with a short window at the
-cell's own load, no pre-load, and the run's own check: first the program on `--seeds`
-(the lower readings: the largest number of sound runs), then the control
-on `--control-seeds` (the upper readings). The control is the plain
-reference put in the program's place and computed in the nearest precision
-below the configuration's float32 with TF32 off: float32 matrix products in
-TF32. Each run prints one JSON line of its compared numbers; the benchmark's
-own runs never run the control.
+cell's own load, no pre-load, and the run's own check: first the program on
+`--seeds` (the lower readings: the largest number of sound runs), then the
+control on `--control-seeds` (the upper readings). The control is the plain
+reference put in the program's place, in the cell's own call (the adapter's
+`Checker.control`), and computed in the nearest precision below the
+configuration's: for float32 with TF32 off, float32 matrix products in TF32.
+Each run prints one JSON line of its compared numbers; the benchmark's own
+runs never run the control.
 """
 
 from __future__ import annotations
@@ -27,35 +28,19 @@ if __name__ == "__main__":
 import torch  # noqa: E402
 
 from benchmark import check, harness  # noqa: E402
-from benchmark.reference import pipeline as rpipe  # noqa: E402
-from benchmark.reference.cloud import ScanGrid as RScanGrid  # noqa: E402
-
-
-def control_step(pipeline: dict, device):
-    """A chunk call that runs the reference with TF32 matrix products."""
-    checker = check.Checker(pipeline, device)
-
-    def step(state, scans, cfg):
-        before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-        try:
-            return rpipe.process_scan_chunk(check.as_reference(state, checker.template),
-                                            RScanGrid(*scans), checker.cfg)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
-    return step
 
 
 def readings(cell, seeds, control_seeds, seconds: float, device) -> list[dict]:
     """One dict a run: which side, the seed, correct, failed and each number."""
     out = []
+    call = cell.traffic["feed"]["call"]
     # the pre-load steadies the card's pace for timing, which a reading has none of
     preload, harness.PRELOAD_S = harness.PRELOAD_S, 0.0
     try:
         for side, seed_list in (("program", seeds), ("control", control_seeds)):
             for seed in seed_list:
-                step = (control_step(cell.config["pipeline"], device) if side == "control"
-                        else None)
+                step = (harness.load_adapter(cell).Checker(cell.config, device).control(call)
+                        if side == "control" else None)
                 res = harness.run(cell, seed, seconds, False, device, time.perf_counter(),
                                   step=step)
                 row = {"side": side, "seed": seed, "correct": res["correct"],

@@ -1,22 +1,24 @@
 """The traced run's two readings, after the measured window.
 
 1. A profiled sub-window: the same closed loop as the window, for a few
-   chunks, under torch.profiler, with host ranges around each chunk call,
-   each pose copy and each pose read. It gives the device's busy time, the
+   calls, under torch.profiler, with host ranges around each call, each
+   pose copy and each pose read. It gives the device's busy time, the
    kernels a scan and the breakdown (tracing.window_stats).
 
-2. A staged pass: a few of the cell's own scans, one by one, through the
-   program's per-scan entry `process_scan` (the body the chunk graph
-   captures), eagerly, with a host range around each stage. The stages are
-   the program's own functions, which the body looks up at call time; each
-   per-layer reader names the ones it needs (its STAGES, and CALLS for
-   functions whose every call's arguments it needs), and a function the
-   harness cannot find leaves that reader nothing to read. The claim rounds
-   of the map run to their bound as they do in the graph (the program's
-   capture flag, CAPTURE_FLAG, is held true), so the pass launches the
-   graph's kernels; where that flag is gone the pass does not run, and no
-   staged metric is read. Device work is given to the stages by correlation
-   id (tracing.device_ms_by_range).
+2. A staged pass: a few of the cell's own sweeps, one by one, through the
+   adapter's per-sweep call (its STAGED_CALL; for the odometry engine the
+   scan body that the chunk graph captures), eagerly, with a host
+   range around each stage. The stages are the program's own functions,
+   which the body looks up at call time; each per-layer reader names the
+   ones it needs (its STAGES, and CALLS for functions whose every call's
+   arguments it needs), and a function the harness cannot find leaves that
+   reader nothing to read. Where the cell's call is captured into a CUDA
+   graph, the pass holds the program's capture flag for that call true (the
+   adapter's CAPTURE_FLAGS), so that the map's claim rounds run to their
+   bound as they do in the graph and the pass launches the graph's kernels;
+   where that flag is gone the pass does not run, and no staged metric is
+   read. A cell whose call runs eagerly is staged as it runs. Device work is
+   given to the stages by correlation id (tracing.device_ms_by_range).
 """
 
 from __future__ import annotations
@@ -28,10 +30,6 @@ import torch
 
 from benchmark import tracing
 
-# the program's test of whether a map insert is being captured into a CUDA
-# graph (module:function, called with a tensor); held true in the staged pass
-CAPTURE_FLAG = "agi_lidar_slam_torch.map.hash_map:_capturing"
-
 
 @dataclasses.dataclass
 class Trace:
@@ -39,7 +37,7 @@ class Trace:
 
     cell: str
     chunk: int
-    call_ms: list  # host ms of each chunk call in the measured window
+    call_ms: list  # host ms of each call in the measured window
     window: tracing.Window | None = None  # the profiled sub-window
     stage_ms: dict = dataclasses.field(default_factory=dict)  # device ms by stage label
     staged_scans: int = 0  # scans of the staged pass
@@ -47,7 +45,7 @@ class Trace:
     call_device_ms: dict = dataclasses.field(default_factory=dict)  # label -> device ms
     missing: dict = dataclasses.field(default_factory=dict)  # label -> why not read
     device_name: str = ""
-    loop_busy_s: float | None = None  # summed device spans of the window's chunk calls
+    loop_busy_s: float | None = None  # summed device spans of the window's calls
     loop_span_s: float | None = None  # from the first call's start to the last one's end
 
     def why_missing(self) -> str:
@@ -110,11 +108,11 @@ def _targets(readers: dict, key: str) -> list:
     return out
 
 
-def staged_pass(engine, cfg, state, feed, n_scans: int, readers: dict, tr: Trace,
-                cuda: bool) -> None:
-    """The staged pass over the n_scans scans that follow the loop's last
-    chunk; fills tr.stage_ms, tr.calls, tr.call_device_ms, tr.staged_scans,
-    or, where the capture flag is gone, only tr.missing."""
+def staged_pass(feed, state, n_scans: int, readers: dict, tr: Trace, cuda: bool) -> None:
+    """The staged pass, through the feed's adapter and program, over the
+    n_scans sweeps that follow the loop's last call; fills tr.stage_ms,
+    tr.calls, tr.call_device_ms, tr.staged_scans, or, where the capture flag
+    of the cell's call is gone, only tr.missing."""
     saved = []
 
     def wrap(label: str, modname: str, attr: str, make):
@@ -129,21 +127,25 @@ def staged_pass(engine, cfg, state, feed, n_scans: int, readers: dict, tr: Trace
         saved.append((mod, attr, fn))
         setattr(mod, attr, make(fn))
 
+    adapter, engine, cfg = feed.adapter, feed.engine, feed.cfg
     start = (feed.k * feed.C) % feed.lap.n
-    idx = [(start + i) % feed.lap.n for i in range(n_scans)]
-    scans = [engine.ScanGrid(feed.lap.xyz[j], feed.lap.mask[j], feed.lap.time[j]) for j in idx]
+    entry = adapter.STAGED_CALL
+    sweeps = [adapter.inputs(engine, feed.lap, (start + i) % feed.lap.n, 1, entry)
+              for i in range(n_scans)]
 
     def run_scans():
         s = state
-        for scan in scans:
-            s, _ = engine.process_scan(s, scan, cfg)
+        for sweep in sweeps:
+            s, _ = getattr(engine, adapter.CALLS[entry])(s, sweep, cfg)
         return s
 
-    modname, attr = CAPTURE_FLAG.split(":")
-    wrap("capture_flag", modname, attr, lambda fn: (lambda t: t.is_cuda))
-    if "capture_flag" in tr.missing:
-        # eager claim rounds would stop early: not the graph's kernels
-        return
+    flag = adapter.CAPTURE_FLAGS.get(feed.call)
+    if flag is not None:
+        modname, attr = flag.split(":")
+        wrap("capture_flag", modname, attr, lambda fn: (lambda t: t.is_cuda))
+        if "capture_flag" in tr.missing:
+            # eager claim rounds would stop early: not the graph's kernels
+            return
     try:
         run_scans()  # unprofiled and unwrapped: what a first eager call sets up
         for label, modname, attr in _targets(readers, "STAGES"):

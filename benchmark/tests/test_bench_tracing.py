@@ -1,5 +1,9 @@
 """The readers' arithmetic on a small synthetic trace."""
 
+from types import SimpleNamespace
+
+import torch
+
 from benchmark import staged, tracing
 from benchmark.tracing import Event
 
@@ -38,6 +42,21 @@ def test_window_busy_kernels_and_gaps():
     assert call_host_ms.read(tr) == 2.0
 
 
+def test_an_operator_with_a_launch_id_takes_no_work_from_its_call():
+    """The profiler's operator events carry ids that can equal a runtime
+    call's correlation id: a graph's kernels stay with the call that
+    launched it, whatever operator shares its id."""
+    ev = [host(B + "window", 0, 1000),
+          host(B + "call", 0, 100), host("cudaGraphLaunch", 10, 20, corr=1),
+          host(B + "call", 200, 300), host("cudaGraphLaunch", 210, 220, corr=2),
+          host(B + "read", 400, 500), host("aten::resolve_conj", 410, 420, corr=1),
+          dev("k1", 50, 150, 1), dev("k2", 150, 190, 1), dev("k3", 250, 350, 2)]
+    w = tracing.window_stats(ev, scans=2)
+    assert w.kernels_in_calls == 3 and w.kernels_unlinked == 0
+    ms = tracing.device_ms_by_range(ev)
+    assert abs(ms["call"] - 240e-6) < 1e-15 and ms["read"] == 0.0
+
+
 def test_stage_device_ms_by_correlation():
     ev = [host(B + "stage::features", 0, 100), host("cudaLaunchKernel", 10, 11, corr=1),
           host("cudaMemsetAsync", 20, 21, corr=2),
@@ -69,38 +88,58 @@ def test_octant_roofline_from_the_frozen_work(monkeypatch):
     assert r.read(tr) is None
 
 
-def test_no_staged_metric_without_the_capture_flag(monkeypatch):
-    import torch
+class _Lap:
+    xyz, mask, time, n = torch.zeros(4, 2, 3, 3), torch.ones(4, 2, 3, dtype=bool), \
+        torch.zeros(4, 2, 3), 4
 
+
+class _Engine:
+    """A program whose per-sweep call counts its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def process_scan(self, state, sweep, cfg):
+        self.calls += 1
+        return state, None
+
+
+class _Adapter:
+    CALLS = {"scan": "process_scan", "chunk": "process_scan_chunk"}
+    STAGED_CALL = "scan"
+    CAPTURE_FLAGS = {"chunk": "benchmark.staged:no_such_flag"}
+
+    @staticmethod
+    def inputs(engine, lap, start, n, call):
+        return lap.xyz[start]
+
+
+def _feed(call, engine):
+    return SimpleNamespace(k=1, C=1, lap=_Lap, adapter=_Adapter, engine=engine, cfg=None,
+                           call=call)
+
+
+def test_no_staged_metric_without_the_capture_flag():
     from benchmark.metrics import map_device_ms, solve_device_ms
 
-    class Lap:
-        xyz, mask, time, n = torch.zeros(4, 2, 3, 3), torch.ones(4, 2, 3, dtype=bool), \
-            torch.zeros(4, 2, 3), 4
-
-    class Feed:
-        k, C, lap = 1, 1, Lap
-
-    class Engine:
-        @staticmethod
-        def ScanGrid(*a):
-            return a
-
-        @staticmethod
-        def process_scan(*a):
-            raise AssertionError("the staged pass ran without the capture flag")
-
-    monkeypatch.setattr(staged, "CAPTURE_FLAG", "benchmark.staged:no_such_flag")
+    engine = _Engine()
     readers = {"map_device_ms": map_device_ms, "solve_device_ms": solve_device_ms}
     tr = staged.Trace(cell="x", chunk=1, call_ms=[])
-    staged.staged_pass(Engine, None, None, Feed, 2, readers, tr, False)
+    staged.staged_pass(_feed("chunk", engine), None, 2, readers, tr, False)
     assert "capture_flag" in tr.missing and not tr.stage_ms and not tr.staged_scans
+    assert engine.calls == 0, "the staged pass ran without the capture flag"
     assert map_device_ms.read(tr) is None and solve_device_ms.read(tr) is None
 
 
-def test_feature_capacity_counts():
-    import torch
+def test_eager_call_is_staged_without_a_capture_flag():
+    engine = _Engine()
+    tr = staged.Trace(cell="x", chunk=1, call_ms=[])
+    staged.staged_pass(_feed("scan", engine), None, 2, {}, tr, False)
+    assert "capture_flag" not in tr.missing and tr.staged_scans == 2
+    assert engine.calls == 4  # the unprofiled pass, then the staged one
 
+
+def test_feature_capacity_counts():
     from benchmark import caps
 
     xyz = torch.tensor([[0.1, 0.1, 0.1], [0.2, 0.2, 0.2], [1.1, 0.1, 0.1], [5.0, 5.0, 5.0]])

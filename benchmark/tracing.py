@@ -61,10 +61,18 @@ def is_kernel(e: Event) -> bool:
     return not e.name.startswith(COPIES)
 
 
+def is_launch(e: Event) -> bool:
+    """A host call of a CUDA API (cudaLaunchKernel, cudaGraphLaunch,
+    cudaMemcpyAsync, cuLaunchKernel, ...): what puts device work on the
+    card. The profiler's operator events (aten::...) carry ids of
+    their own that can equal a runtime call's correlation id, so they are
+    never taken for a launch."""
+    return not e.on_device and not e.annotation and e.corr != 0 and e.name.startswith("cu")
+
+
 def launch_times(events: list[Event]) -> dict[int, int]:
     """Correlation id -> host start of the call that made that device work."""
-    return {e.corr: e.start_ns for e in events
-            if not e.on_device and not e.annotation and e.corr}
+    return {e.corr: e.start_ns for e in events if is_launch(e)}
 
 
 def _inside(spans: list[tuple[int, int]], t: int) -> bool:

@@ -11,6 +11,19 @@ lap closes on itself, so replaying it lap after lap is a continuous drive
 around a mapped area. The seed draws the pillars and each sweep's range
 noise; every seed gives the same sizes, the same trajectory and the same
 number of sweeps.
+
+A scene may carry an `imu` block: an IMU on the sensor's body frame sampled
+at `rate_hz` from the lap's start, its exact readings (the frozen simulator's
+`circle_imu`, specific force under a gravity of magnitude `gravity` m/s^2)
+plus a constant bias and white noise. Each axis of the gyroscope's bias is
+drawn once a lap with the standard deviation `gyro_bias` (rad/s), of the
+accelerometer's with `acc_bias` (m/s^2); each sample's noise with
+`gyro_noise` (rad/s) and `acc_noise` (m/s^2). They come from a generator of
+their own (tag IMU_TAG), drawn in that order (the two biases, then the
+gyroscope's noise, then the accelerometer's), so the block leaves every
+sweep as it is without it. A sweep's samples are those whose time lies in
+[sweep start, next sweep's start); the lap closes on itself, and so do its
+readings, which a replay repeats lap after lap.
 """
 
 from __future__ import annotations
@@ -21,9 +34,19 @@ from typing import NamedTuple
 import torch
 
 from benchmark.reference import se3
-from benchmark.traffic.sim import BoxWorld, _generator, circle_pose, simulate_scan
+from benchmark.traffic.sim import BoxWorld, _generator, circle_imu, circle_pose, simulate_scan
 
 SEED_MOD = 2**63  # torch.Generator seeds are 64-bit; the run's seed may be larger
+IMU_TAG = 3  # the IMU's generator; 1 is the world's and 2 the sweeps'
+
+
+class Imu(NamedTuple):
+    """A lap's IMU stream, in the body frame of the sensor."""
+
+    t: torch.Tensor  # (m,) seconds from the lap's start
+    gyro: torch.Tensor  # (m, 3) body rates, rad/s
+    acc: torch.Tensor  # (m, 3) specific force, m/s^2
+    ranges: torch.Tensor  # (n + chunk - 1, 2) int64, each sweep's [first, end) sample
 
 
 class Lap(NamedTuple):
@@ -37,6 +60,7 @@ class Lap(NamedTuple):
     gt: se3.Pose  # (n,) sweep-start poses
     start: se3.Pose  # the pose one sweep before the lap's first
     before_start: se3.Pose  # and two sweeps before it
+    imu: Imu | None = None  # where the scene has an `imu` block
 
 
 def _seed(*parts: int) -> int:
@@ -95,4 +119,26 @@ def make_lap(scene: dict, sensor: dict, seed: int, chunk: int, device) -> Lap:
               for i in range(n)]
     sweeps += sweeps[:chunk - 1]
     xyz, mask, time = (torch.stack(f) for f in zip(*sweeps))
-    return Lap(xyz, mask, time, n, se3.Pose(poses.q[2:n + 2], poses.t[2:n + 2]), at(-1), at(-2))
+    imu = make_imu(scene["imu"], seed, n, dt, r, omega, chunk, device) if "imu" in scene else None
+    return Lap(xyz, mask, time, n, se3.Pose(poses.q[2:n + 2], poses.t[2:n + 2]), at(-1), at(-2),
+               imu)
+
+
+def make_imu(block: dict, seed: int, n: int, dt: float, radius: float, omega: float,
+             chunk: int, device) -> Imu:
+    """The IMU stream of a lap of n sweeps of dt seconds on the circle."""
+    rate = float(block["rate_hz"])
+    # sample k lies in sweep floor(k / (rate * dt)); the rounding keeps a
+    # sample that falls on a sweep's start in that sweep
+    first = [math.ceil(round(i * dt * rate, 6)) for i in range(n + 1)]
+    m = first[n]
+    t = torch.arange(m, dtype=torch.float64, device=device).div_(rate).float()
+    gyro, acc = circle_imu(t, radius, omega, device=device, gravity=float(block["gravity"]))
+    g = _generator(_seed(seed, IMU_TAG), device)
+    bias_g = float(block["gyro_bias"]) * torch.randn(3, generator=g, device=device)
+    bias_a = float(block["acc_bias"]) * torch.randn(3, generator=g, device=device)
+    noise_g = float(block["gyro_noise"]) * torch.randn((m, 3), generator=g, device=device)
+    noise_a = float(block["acc_noise"]) * torch.randn((m, 3), generator=g, device=device)
+    ranges = torch.tensor([[first[i % n], first[i % n + 1]] for i in range(n + chunk - 1)],
+                          dtype=torch.int64, device=device)
+    return Imu(t, gyro + bias_g + noise_g, acc + bias_a + noise_a, ranges)

@@ -1,6 +1,7 @@
 # Frozen copy of the simulator of agi_lidar_slam_torch/sim/world.py
 # (`default_world`, `ray_dirs`, `_raycast_boxes`, `simulate_scan`) and
-# agi_lidar_slam_torch/sim/trajectory.py (`circle_pose`) at commit 88e7c49:
+# agi_lidar_slam_torch/sim/trajectory.py (`circle_pose`, `circle_imu`) at
+# commit 88e7c49 (`circle_imu` takes the gravity's magnitude as an argument):
 # the benchmark's traffic comes from here, so that changes to the program's
 # simulator cannot move it. benchmark/tests/test_bench_sim.py holds it to the
 # program's simulator at that commit, bit for bit.
@@ -159,3 +160,19 @@ def circle_pose(t, radius: float, omega: float, device=None) -> se3.Pose:
     p = torch.stack([radius * torch.sin(th), radius * (1.0 - torch.cos(th)), zeros], dim=-1)
     q = so3.quat_exp(torch.stack([zeros, zeros, th], dim=-1))
     return se3.Pose(q, p)
+
+
+G = 9.81
+
+
+def circle_imu(t, radius: float, omega: float, device=None, gravity: float = G):
+    """Exact IMU at time t: (gyro_body (...,3), acc_body specific force (...,3)).
+    In the body frame the tangent/normal decomposition gives a constant
+    specific force (0, v*omega, gravity) and body rate (0, 0, omega)."""
+    t = _times(t, device)
+    v = radius * omega
+    zeros = torch.zeros_like(t)
+    acc_body = torch.stack([zeros, torch.full_like(t, v * omega), torch.full_like(t, gravity)],
+                           dim=-1)
+    gyro_body = torch.stack([zeros, zeros, torch.full_like(t, omega)], dim=-1)
+    return gyro_body, acc_body
